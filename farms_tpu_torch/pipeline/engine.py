@@ -1,0 +1,543 @@
+"""Chunked streaming flow engine, PyTorch main path.
+
+Counterpart of `farms_tpu.pipeline.engine` for one device and the dense
+formulation: the replacement of the reference's per-event hot loop
+(runFileCopy, vFlow.cpp:223-414). Events are processed in fixed-size
+micro-batches (`micro_step`); the host resolves each scatter group's
+winners and packs the events as delta-coded 4-byte words (compact2,
+`pack2`), the device decodes them, scatters the winning stamps, fits the
+local planes, updates the flow surfaces, pools the aperture scales and
+gathers the per-event results into the wire format, which the host
+decodes into the 11 output columns (`decode_wire_columns`).
+
+Sequential-semantics note: the reference is strictly event-serial. A
+micro-batch instead scatters its events first, then computes every flow
+against a causal view of that surface, so the residual error is bounded by
+the micro-batch's time span; chunk_size=1 reproduces the reference, which
+the tests check against the float64 oracle (pipeline/oracle.py).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from farms_tpu_torch.config import FlowConfig, require_slice
+from farms_tpu_torch.events.io import EventBatch, FlowOutput
+from farms_tpu_torch.ops import _build, kernels
+from farms_tpu_torch.ops.dense_flow import onehot_gather, trig_tail
+from farms_tpu_torch.state.surfaces import (SurfaceState, init_state,
+                                            kill_stale_flow)
+
+# compact2 escape slots per micro-step: stamp deltas too large for the
+# word's field ride as exact (lane, delta) pairs
+_C2_ESCAPES = 16
+
+# equal-stamp write escapes per (step, phase): the derived `written`
+# (t_surf != t_pre) misses a phase-final write whose stamp equals the
+# pixel's pre-phase value; the host ships those lanes. A call with a phase
+# over budget takes the epoch-scatter path instead.
+_W_ESCAPES = 32
+
+
+def compact2_bits(cfg: FlowConfig) -> tuple[int, int]:
+    """(index_bits, delta_bits) of the compact2 word for this sensor."""
+    idx_bits = (cfg.width * cfg.height).bit_length()
+    return idx_bits, 31 - idx_bits
+
+
+def _wrap_i32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values reduced mod 2^32 into int32 (two's complement)."""
+    v = v & 0xFFFFFFFF
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# device->host wire format: the 4 flow components plus one aux byte (valid
+# flag in bit 7, scale id in bits 0-6); the magnitude/angle columns
+# (vFlow.cpp:370-396) are derived on the host.
+# --------------------------------------------------------------------------
+
+def _f16_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pack two f32 tensors into one int32 tensor of f16 bit-halves
+    (a in the low half). Saturating: clipped to the f16 finite range so the
+    host never decodes a spurious inf; NaN propagates."""
+    pair = torch.stack([torch.clamp(a, -65504.0, 65504.0).half(),
+                        torch.clamp(b, -65504.0, 65504.0).half()], -1)
+    return pair.view(torch.int32).squeeze(-1)
+
+
+def wire_pack(vx, vy, tvx_g, tvy_g, aux_f, cfg: FlowConfig):
+    """Pack per-lane outputs into (main int32 [C, m], aux uint8 [m]).
+
+    `tvx_g`/`tvy_g` are the true-flow components pre-gated to 0 on invalid
+    lanes; `aux_f` is the aux byte as f32 (128 * valid + scale_id).
+    """
+    aux = aux_f.to(torch.uint8)
+    if cfg.wire != "f32":
+        main = torch.stack([_f16_pair(vx, vy), _f16_pair(tvx_g, tvy_g)], 0)
+    else:
+        main = torch.stack([vx, vy, tvx_g, tvy_g], 0).view(torch.int32)
+    return main, aux
+
+
+def wire_maps(gate_map, vx_map, vy_map, tvx_map, tvy_map, scale_map,
+              cfg: FlowConfig):
+    """Stack the dense per-pixel maps the wire needs.
+
+    f32 wire: [5, W, H] f32 - vx, vy, gated true_vx, gated true_vy, aux
+    byte value. f16 wire: [3, W, H] - the two f16 component pairs packed
+    into int32 at map level (viewed as f32 so one gather moves all rows)
+    and the aux row; the same wire bytes as packing after the gather.
+    Non-finite values are scrubbed (they arise only with
+    min_evts_on_plane <= 0).
+    """
+    aux_f = torch.where(gate_map, 128 + scale_map // cfg.window_jump,
+                        0).to(torch.float32)
+
+    def sc(a):
+        return torch.nan_to_num(a, nan=0.0, posinf=0.0, neginf=0.0)
+
+    tvx_g = torch.where(gate_map, tvx_map, 0.0)
+    tvy_g = torch.where(gate_map, tvy_map, 0.0)
+    if cfg.wire != "f32":
+        p0 = _f16_pair(sc(vx_map), sc(vy_map)).view(torch.float32)
+        p1 = _f16_pair(sc(tvx_g), sc(tvy_g)).view(torch.float32)
+        return torch.stack([p0, p1, aux_f], 0)
+    maps = sc(torch.stack([vx_map, vy_map, tvx_g, tvy_g], 0))
+    return torch.cat([maps, aux_f[None]], 0)
+
+
+def wire_n_main_rows(cfg: FlowConfig) -> int:
+    return 4 if cfg.wire == "f32" else 2
+
+
+def _decode_batch(batch: dict, cfg: FlowConfig):
+    """(x, y, t, is_winner) int32/bool lanes of a packed micro-step.
+
+    compact2 ("ev" int32 [1, m] words, "base" the step's first stamp,
+    "esc" int32 [2, E] (lane, delta) escape pairs): bits 0..ib-1 flat pixel
+    index (sentinel W*H on padded lanes), bit ib the host-resolved winner
+    flag, the upper bits the unsigned stamp delta to the previous lane;
+    every lane at or past an escape lane re-adds that escape's delta.
+    compact ("ev" int32 [2, m]): flat index | winner << 30, stamp.
+    """
+    ev = batch["ev"]
+    H = cfg.height
+    if "base" in batch:
+        word = ev[0]
+        esc_l, esc_d = batch["esc"][0], batch["esc"][1]
+        ib, db = compact2_bits(cfg)
+        is_winner = ((word >> ib) & 1).to(torch.bool)
+        dt = (word >> (ib + 1)) & ((1 << db) - 1)
+        # int64 sums reduced mod 2^32: the stamps wrap past 2^31
+        t = batch["base"].to(torch.int64) + torch.cumsum(dt, 0,
+                                                         dtype=torch.int64)
+        lane = torch.arange(word.shape[0], device=word.device)
+        t = t + torch.where(lane[None, :] >= esc_l[:, None],
+                            esc_d[:, None].to(torch.int64), 0).sum(0)
+        t = _wrap_i32(t)
+        xy = word & ((1 << ib) - 1)
+    else:
+        word, t = ev[0], ev[1]
+        is_winner = ((word >> 30) & 1).to(torch.bool)
+        xy = word & 0x3FFFFFFF
+    x = xy // H
+    y = xy - x * H
+    return x, y, t, is_winner
+
+
+def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig):
+    """Process one micro-batch of events against the carried surfaces.
+
+    `batch` is the dict of one packed micro-step (see _decode_batch), with
+    an optional "wesc" int32 [P, E] of phase-local equal-stamp escape lanes
+    that enables the derived `written` (no epoch scatter). Returns the new
+    state and the wire pair (int32 [C, m], uint8 [m]); the state passed in
+    is not modified.
+
+    The chunk's lanes run as cfg.sub_phases = P chronological groups in
+    turn: each group's winners are scattered and its flows computed against
+    the surfaces every earlier group left, and the staleness kill re-runs
+    at each group's start.
+    """
+    x, y, t, is_winner = _decode_batch(batch, cfg)
+    wesc = batch.get("wesc")
+    W, H = cfg.width, cfg.height
+    WH = W * H
+    m = x.shape[0]
+    P = cfg.sub_phases if m % cfg.sub_phases == 0 else 1
+    mp = m // P
+    dev = x.device
+
+    t_surf, epoch = state.t_surf, state.epoch
+    flow_len, flow_vx, flow_vy = state.flow_len, state.flow_vx, state.flow_vy
+    # flat pixel index per lane; non-winners (and padded lanes) go to the
+    # spare cell WH of a [W*H + 1] buffer, which nothing reads
+    pix = x.to(torch.int64) * H + y.to(torch.int64)
+    wpix = torch.where(is_winner, pix, WH)
+    lanes_out = []
+    for p in range(P):
+        sl = slice(p * mp, (p + 1) * mp)
+        ts = t[sl]
+
+        # ---- permanent staleness kill (exact; see state/surfaces.py) ----
+        flow_len = kill_stale_flow(flow_len, t_surf, ts[0], cfg)
+
+        # ---- scatter the group winners' stamp1 into the time surface.
+        # Winners are host-resolved (the last event per pixel in the
+        # group, vFlow.cpp:264-273), so every real index is unique ----
+        t_pre = t_surf
+        flat = torch.cat([t_surf.reshape(-1), t_surf.new_zeros(1)])
+        flat[wpix[sl]] = ts + 1                # stamp1 encoding
+        t_surf = flat[:WH].view(W, H)
+        if wesc is not None:
+            # derived written: pixels whose stamp changed, plus the
+            # host-found equal-stamp rewrites (sentinel slots = mp)
+            el = wesc[p].to(torch.int64)
+            ep = torch.where(el < mp, pix[sl][el.clamp(0, mp - 1)], WH)
+            wflat = torch.cat([(t_surf != t_pre).reshape(-1),
+                               torch.zeros(1, dtype=torch.bool, device=dev)])
+            wflat[ep] = True
+            written = wflat[:WH].view(W, H)
+        else:
+            ep_val = state.step * P + p        # unique, monotone epoch
+            eflat = torch.cat([epoch.reshape(-1), epoch.new_zeros(1)])
+            eflat[wpix[sl]] = ep_val
+            epoch = eflat[:WH].view(W, H)
+            written = epoch == ep_val
+
+        # ---- local plane fit (kernel 1) and its trig tail ----
+        accept, a_coef, b_coef, dtdp, _ = kernels.local_flow(
+            t_pre[None], t_surf, cfg)
+        vx_map, vy_map, gate_map, len_map, _ = trig_tail(
+            accept, a_coef, b_coef, dtdp)
+
+        # flow-surface writes for every pixel written this group
+        # (vFlow.cpp:349-356 valid / 398-402 invalid)
+        flow_len = torch.where(
+            written, torch.where(gate_map, len_map, 0.0), flow_len)
+        flow_vx = torch.where(
+            written, torch.where(gate_map, vx_map, 0.0), flow_vx)
+        flow_vy = torch.where(
+            written, torch.where(gate_map, vy_map, 0.0), flow_vy)
+
+        # ---- multi-scale aperture pooling (kernel 3) ----
+        tvx_map, tvy_map, scale_map = kernels.aperture(
+            flow_len, flow_vx, flow_vy, cfg)
+
+        maps = wire_maps(gate_map, vx_map, vy_map, tvx_map, tvy_map,
+                         scale_map, cfg)
+        lanes_out.append(onehot_gather(maps, x[sl], y[sl], W, H))
+
+    lanes = torch.cat(lanes_out, 1)
+    if cfg.wire != "f32":
+        # the rows are already the f16 pair words (as f32 bits) + aux
+        out = (lanes[:2].view(torch.int32), lanes[2].to(torch.uint8))
+    else:
+        out = wire_pack(lanes[0], lanes[1], lanes[2], lanes[3], lanes[4], cfg)
+    new_state = SurfaceState(t_surf, epoch, flow_len, flow_vx, flow_vy,
+                             state.step + 1)
+    return new_state, out
+
+
+def scan_chunk(state: SurfaceState, chunk: dict, cfg: FlowConfig):
+    """Run the micro-steps of one call in order.
+
+    `chunk` is a micro_step batch dict with a leading [n_steps] axis on
+    every entry. Returns the final state and the stacked wire pair
+    (int32 [n_steps, C, m], uint8 [n_steps, m]).
+    """
+    mains, auxs = [], []
+    n_steps = chunk["ev"].shape[0]
+    for i in range(n_steps):
+        state, (main, aux) = micro_step(
+            state, {k: v[i] for k, v in chunk.items()}, cfg)
+        mains.append(main)
+        auxs.append(aux)
+    return state, (torch.stack(mains), torch.stack(auxs))
+
+
+class FlowEngine:
+    """Host-side streaming loop carrying device state across calls."""
+
+    def __init__(self, cfg: FlowConfig, device="cuda"):
+        require_slice(cfg)
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but CUDA is not "
+                               "available")
+        if device.type == "cuda":
+            # build the kernels now, outside any timed region of process()
+            _build.load()
+        self.cfg = cfg
+        self.device = device
+        self.reset()
+
+    def reset(self):
+        self.state = init_state(self.cfg, self.device)
+        self._t0 = None
+        # host mirror of t_surf (stamp1) for pack_wesc
+        self._last_stamp = np.zeros(self.cfg.width * self.cfg.height,
+                                    np.int32)
+
+    def set_state(self, state: SurfaceState) -> None:
+        """Adopt a state (e.g. a restored checkpoint) and re-seed the host
+        stamp mirror that pack_wesc's equal-stamp detection tracks."""
+        self.state = state
+        self._last_stamp = (state.t_surf.cpu().numpy().reshape(-1)
+                            .astype(np.int32).copy())
+
+    # ---- host-side packing -------------------------------------------------
+    def pack(self, ev: EventBatch, steps_per_call: int | None = None):
+        """Normalize, pad, and pack an event stream for the device.
+
+        Returns (packed int32 [n_calls, steps, 2, m] host array, n) where n
+        is the real event count; the two rows are x*H+y | winner<<30 and
+        t (the compact layout; require_slice keeps W*H below 2^30, so the
+        index never reaches the winner bit). The first call latches
+        t0 = first stamp (vFlow.cpp:194, 241); later calls continue the
+        same timeline.
+        """
+        cfg = self.cfg
+        n = len(ev)
+        if self._t0 is None and n:
+            self._t0 = np.uint32(ev.t[0])
+
+        m = cfg.chunk_size
+        spc = steps_per_call or cfg.steps_per_scan
+        per_call = m * spc
+        n_calls = max(1, -(-n // per_call))
+        total = n_calls * per_call
+        pad_total = total - n
+
+        x = np.clip(ev.x.astype(np.int32), 0, cfg.width - 1)
+        y = np.clip(ev.y.astype(np.int32), 0, cfg.height - 1)
+        t = (ev.t.astype(np.uint32) - (self._t0 or np.uint32(0))).view(np.int32)
+
+        def padded(arr, fill):
+            if not pad_total:
+                return arr
+            out = np.empty(total, dtype=np.int32)
+            out[:n] = arr
+            out[n:] = fill
+            return out
+
+        xp = padded(x, 0)
+        yp = padded(y, 0)
+        tp = padded(t, t[-1] if n else 0)
+
+        # host-side winner resolution per scatter group: the last event at
+        # each pixel within a group wins (vFlow.cpp:264-273). NumPy
+        # fancy-index assignment keeps the last write. Padded lanes go to
+        # a sentinel bucket so they cannot steal pixel (0, 0).
+        blk = m // (cfg.sub_phases * cfg.causal_snapshots)
+        flat = xp * np.int64(cfg.height) + yp
+        flat[n:] = cfg.width * cfg.height
+        flat = flat.reshape(-1, blk)
+        lanes = np.arange(blk)
+        seen = np.empty(cfg.width * cfg.height + 1, dtype=np.int64)
+        winner = np.empty((flat.shape[0], blk), dtype=np.int32)
+        for b in range(flat.shape[0]):
+            seen[flat[b]] = lanes
+            winner[b] = seen[flat[b]] == lanes
+        winner = winner.reshape(-1)
+        winner[n:] = 0
+
+        word = flat.reshape(-1).astype(np.int32)
+        word |= winner << 30
+        packed = np.empty((n_calls, spc, 2, m), dtype=np.int32)
+        packed[:, :, 0, :] = word.reshape(n_calls, spc, m)
+        packed[:, :, 1, :] = tp.reshape(n_calls, spc, m)
+        return packed, n
+
+    def pack_wesc(self, ev: EventBatch, steps_per_call: int | None = None):
+        """Equal-stamp write escapes for the derived-written device path.
+
+        Returns (wesc int32 [n_calls, spc, P, E] phase-local lane indices
+        with sentinel mp for unused slots, ok bool [n_calls]). A call whose
+        escapes fit ships `wesc` and skips the epoch scatter; ok=False
+        calls (a phase overflowed E) use the epoch-scatter path. Advances
+        the host stamp mirror, so call it exactly once per packed stream,
+        in stream order.
+        """
+        cfg = self.cfg
+        m = cfg.chunk_size
+        P = cfg.sub_phases
+        mp = m // P
+        E = _W_ESCAPES
+        W, H = cfg.width, cfg.height
+        WH = W * H
+        n = len(ev)
+        if self._t0 is None and n:
+            self._t0 = np.uint32(ev.t[0])
+        spc = steps_per_call or cfg.steps_per_scan
+        per_call = m * spc
+        n_calls = max(1, -(-n // per_call))
+        last = self._last_stamp
+        x = np.clip(ev.x.astype(np.int64), 0, W - 1)
+        y = np.clip(ev.y.astype(np.int64), 0, H - 1)
+        flat = np.full(n_calls * per_call, WH, dtype=np.int64)
+        flat[:n] = x * H + y
+        t1 = np.zeros(n_calls * per_call, dtype=np.int32)
+        t1[:n] = ((ev.t.astype(np.uint32) - self._t0 + np.uint32(1))
+                  ).view(np.int32)
+        flat = flat.reshape(n_calls, spc, P, mp)
+        t1 = t1.reshape(n_calls, spc, P, mp)
+        wesc = np.full((n_calls, spc, P, E), mp, dtype=np.int32)
+        ok = np.ones(n_calls, dtype=bool)
+        lanes = np.arange(mp, dtype=np.int64)
+        seen = np.empty(WH + 1, dtype=np.int64)
+        for c in range(n_calls):
+            for s in range(spc):
+                for p in range(P):
+                    f = flat[c, s, p]
+                    tp = t1[c, s, p]
+                    seen[f] = lanes
+                    final = (seen[f] == lanes) & (f < WH)
+                    ff = f[final]
+                    eq = tp[final] == last[ff]    # vs PRE-phase value
+                    last[ff] = tp[final]
+                    el = lanes[final][eq]
+                    if el.size > E:
+                        ok[c] = False             # keep `last` advancing
+                    else:
+                        wesc[c, s, p, :el.size] = el
+        return wesc, ok
+
+    def pack2(self, ev: EventBatch, steps_per_call: int | None = None):
+        """Delta-coded 4 B/event repack of the compact layout.
+
+        Returns (packed, aux, n): int32 [n_calls, spc, 1, m] words
+        (flat idx | winner << ib | stamp-delta << ib+1, ib from
+        compact2_bits) and aux = (bases int32 [n_calls, spc] per-step
+        first stamps, escapes int32 [n_calls, spc, 2, E] oversized-delta
+        (lane, true delta) pairs). `aux` is None and `packed` the compact
+        layout from pack() when a step overflows the escape budget or the
+        sensor leaves fewer than 8 delta bits: exact stamps always win
+        over wire size.
+        """
+        packed, n = self.pack(ev, steps_per_call=steps_per_call)
+        ib, db = compact2_bits(self.cfg)
+        if db < 8:
+            return packed, None, n
+        E = _C2_ESCAPES
+        pu = packed.view(np.uint32)
+        word1 = pu[:, :, 0, :]
+        t = pu[:, :, 1, :]
+        n_calls, spc, m = t.shape
+        dt = t.copy()
+        dt[:, :, 1:] -= t[:, :, :-1]
+        dt[:, :, 0] = 0
+        escapes = np.empty((n_calls, spc, 2, E), np.int32)
+        escapes[:, :, 0, :] = m           # sentinel lane: unused slot
+        escapes[:, :, 1, :] = 0
+        over = dt > np.uint32((1 << db) - 1)   # incl. wrapped negatives
+        if over.any():
+            cnt = over.sum(axis=2)
+            if cnt.max() > E:
+                return packed, None, n
+            for c, s in zip(*np.nonzero(cnt)):
+                lanes = np.nonzero(over[c, s])[0]
+                escapes[c, s, 0, :lanes.size] = lanes
+                escapes[c, s, 1, :lanes.size] = dt[c, s, lanes].view(np.int32)
+            dt = np.where(over, np.uint32(0), dt)
+        win = (word1 >> np.uint32(30)) & np.uint32(1)
+        flat = word1 & np.uint32(0x3FFFFFFF)
+        word2 = (flat | (win << np.uint32(ib))
+                 | (dt << np.uint32(ib + 1))).view(np.int32)
+        bases = np.ascontiguousarray(t[:, :, 0]).view(np.int32)
+        return word2[:, :, None, :], (bases, escapes), n
+
+    def _unpack_outputs(self, out_blocks, ev: EventBatch, n: int) -> FlowOutput:
+        """Decode wire blocks [(main int32 [steps, C, m], aux uint8
+        [steps, m])] into the 11-column FlowOutput (first n lanes)."""
+        cfg = self.cfg
+        C = wire_n_main_rows(cfg)
+        main = np.concatenate(
+            [mo.transpose(1, 0, 2).reshape(C, -1) for mo, _ in out_blocks],
+            axis=1)[:, :n]
+        aux = np.concatenate([ao.reshape(-1) for _, ao in out_blocks])[:n]
+        cols = decode_wire_columns(main, aux, cfg)
+        t = (ev.t.astype(np.uint32) - self._t0).astype(np.uint32)
+        return FlowOutput(
+            x=ev.x.astype(np.int32),
+            y=ev.y.astype(np.int32),
+            t=t,
+            pol=ev.pol.astype(np.int32),
+            **cols,
+        )
+
+    # ---- processing --------------------------------------------------------
+    def process(self, ev: EventBatch,
+                steps_per_call: int | None = None) -> FlowOutput:
+        """Process an event stream (or a continuation of one).
+
+        Single-threaded: packs on the host, uploads each call's batch, runs
+        its micro-steps, and copies the wire outputs back.
+        """
+        n = len(ev)
+        if n == 0:
+            return _empty_output()
+        packed, aux2, n = self.pack2(ev, steps_per_call=steps_per_call)
+        wesc, w_ok = self.pack_wesc(ev, steps_per_call=steps_per_call)
+        dev = self.device
+        blocks = []
+        for c in range(packed.shape[0]):
+            chunk = {"ev": torch.from_numpy(packed[c]).to(dev)}
+            if aux2 is not None:
+                chunk["base"] = torch.from_numpy(aux2[0][c]).to(dev)
+                chunk["esc"] = torch.from_numpy(aux2[1][c]).to(dev)
+            if w_ok[c]:
+                chunk["wesc"] = torch.from_numpy(wesc[c]).to(dev)
+            self.state, (main, aux) = scan_chunk(self.state, chunk, self.cfg)
+            blocks.append((main.cpu().numpy(), aux.cpu().numpy()))
+        return self._unpack_outputs(blocks, ev, n)
+
+
+def decode_wire_columns(main, aux, cfg: FlowConfig) -> dict:
+    """Decode wire rows into the 7 per-lane output columns.
+
+    `main` is int32 [C, k] (C = wire_n_main_rows; f16 mode packs each
+    component pair into one int32), `aux` uint8 [k]. Returns the dict of
+    numpy columns {r_true, theta_true, vx, vy, r_local, theta_local,
+    scale}; the magnitude/angle columns (vFlow.cpp:370-396) are f32
+    functions of the shipped components. Invalid lanes keep their raw
+    (possibly NaN) vx/vy and zeros elsewhere (vFlow.cpp:390-395); the true
+    components arrive pre-gated to 0.
+    """
+    if cfg.wire != "f32":
+        p0 = main[0].view(np.uint32)
+        p1 = main[1].view(np.uint32)
+        vx = (p0 & 0xFFFF).astype(np.uint16).view(np.float16).astype(np.float32)
+        vy = (p0 >> 16).astype(np.uint16).view(np.float16).astype(np.float32)
+        tvx = (p1 & 0xFFFF).astype(np.uint16).view(np.float16).astype(np.float32)
+        tvy = (p1 >> 16).astype(np.uint16).view(np.float16).astype(np.float32)
+    else:
+        vx = main[0].view(np.float32)
+        vy = main[1].view(np.float32)
+        tvx = main[2].view(np.float32)
+        tvy = main[3].view(np.float32)
+    valid = (aux & 0x80) != 0
+    scale = (aux & 0x7F).astype(np.int32) * cfg.window_jump
+    with np.errstate(invalid="ignore", over="ignore"):
+        r_true = np.sqrt(tvx * tvx + tvy * tvy)
+        theta_true = np.arctan2(tvy, tvx)
+        length = np.sqrt(vx * vx + vy * vy)
+        theta_l = np.arctan2(vy, vx)
+    zero = np.float32(0.0)
+    return dict(
+        r_true=r_true,
+        theta_true=theta_true,
+        vx=vx,
+        vy=vy,
+        r_local=np.where(valid, length, zero),
+        theta_local=np.where(valid, theta_l, zero),
+        scale=scale,
+    )
+
+
+def _empty_output() -> FlowOutput:
+    z = np.zeros(0)
+    zi = np.zeros(0, dtype=np.int32)
+    return FlowOutput(zi, zi, np.zeros(0, dtype=np.uint32), zi,
+                      z, z, z, z, z, z, zi)

@@ -1,0 +1,102 @@
+"""The port's CLI: same flags, prints and output file as farms_tpu.cli."""
+import numpy as np
+import pytest
+import torch
+
+from farms_tpu_torch import cli as tcli
+from farms_tpu_torch.events.io import (read_flow_txt, synthetic_translating_bar,
+                                       write_events_txt)
+
+torch.set_num_threads(1)
+
+
+def _events_file(tmp_path, name="events", n=900):
+    ev = synthetic_translating_bar(width=64, height=64, bar_len=24,
+                                   duration_us=40000, jitter_us=15,
+                                   seed=2)[:n]
+    base = str(tmp_path / name)
+    write_events_txt(ev, base)
+    return ev, base
+
+
+_POINT = ["--width", "64", "--height", "64", "--chunk-size", "256",
+          "--sub-phases", "2", "--wire", "f16", "--steps-per-scan", "2"]
+
+
+def test_cli_matches_jax_cli(tmp_path, capsys):
+    pytest.importorskip("jax")
+    from farms_tpu import cli as jcli
+
+    ev, base = _events_file(tmp_path)
+    assert jcli.main(["--filename", base, *_POINT]) == 0
+    want = read_flow_txt(base + "_FARMSOut_batch.txt")
+    jax_out = capsys.readouterr().out
+    assert tcli.main(["--filename", base, *_POINT, "--device", "cpu"]) == 0
+    got = read_flow_txt(base + "_FARMSOut_batch.txt")
+    out = capsys.readouterr().out
+    assert len(got) == len(want) == len(ev)
+    for col in ("x", "y", "t", "pol", "scale"):
+        np.testing.assert_array_equal(getattr(got, col), getattr(want, col),
+                                      err_msg=col)
+    np.testing.assert_array_equal(got.r_local > 0, want.r_local > 0)
+    assert (want.r_local > 0).mean() > 0.3
+    valid = want.r_local > 0
+    np.testing.assert_allclose(got.r_true[valid], want.r_true[valid],
+                               rtol=2e-3)
+    # the same prints, line for line, up to the measured duration
+    strip = [ln for ln in jax_out.splitlines() if "[Benchmark Main]" not in ln]
+    assert [ln for ln in out.splitlines()
+            if "[Benchmark Main]" not in ln] == strip
+    assert "[Benchmark Main] : Processing time" in out
+
+
+def test_parser_defaults_match_reference():
+    # reference defaults: main.cpp:21-31
+    args = tcli.build_parser().parse_args(["--filename", "f"])
+    assert args.height == 320 and args.width == 320
+    assert args.filtersize == 3
+    assert args.inlierCheck == 5
+    assert args.num_events is None
+    assert args.device == "cuda"
+
+
+def test_default_operating_point_by_device():
+    p = tcli.build_parser()
+    on_card = tcli._resolve_operating_point(p.parse_args(["--filename", "f"]))
+    on_cpu = tcli._resolve_operating_point(
+        p.parse_args(["--filename", "f", "--device", "cpu"]))
+    assert on_card == (131072, 2, 0, 1, 0, False, "f16")
+    assert on_cpu == (4096, 1, 0, 1, 0, False, "f32")
+    exact = tcli._resolve_operating_point(
+        p.parse_args(["--filename", "f", "--preset", "benchmark",
+                      "--chunk-size", "1"]))
+    assert exact[:4] == (1, 1, 0, 1) and exact[-1] == "f16"
+
+
+def test_benchmark_preset_runs_on_cpu(tmp_path, capsys):
+    ev, base = _events_file(tmp_path, "bench", n=600)
+    assert tcli.main(["--filename", base, "--width", "64", "--height", "64",
+                      "--preset", "benchmark", "--device", "cpu"]) == 0
+    got = read_flow_txt(base + "_FARMSOut_batch.txt")
+    assert len(got) == len(ev)
+    assert (got.r_local > 0).sum() > 100
+    assert "events/sec" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags", [
+    ["--SERIAL", "1"], ["--engine", "halo"], ["--devices", "2"],
+    ["--backend", "perevent"], ["--multihost"], ["--preset", "fidelity"],
+    ["--wire", "sparse"], ["--snapshots", "2"],
+])
+def test_unported_modes_raise(tmp_path, flags):
+    _, base = _events_file(tmp_path, "x", n=10)
+    with pytest.raises(NotImplementedError):
+        tcli.main(["--filename", base, "--width", "64", "--height", "64",
+                   "--device", "cpu", "--chunk-size", "64", *flags])
+
+
+def test_cuda_requested_without_cuda_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, base = _events_file(tmp_path, "y", n=10)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tcli.main(["--filename", base, "--width", "64", "--height", "64"])
