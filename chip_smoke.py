@@ -11,35 +11,65 @@ Phases, each printed with its result and seconds:
    (one nvcc per source in farms_tpu_torch/csrc, all started together,
    into farms_tpu_torch/_build);
 2. each CUDA kernel against its plain PyTorch version on the card, bitwise,
-   at the main paths' shapes (320 x 320), with both median times from CUDA
-   events: local flow at k = 3 and k = 5, on one surface and on the
+   at the main paths' shapes (320 x 320), with the median times of one
+   wrapper call and of one plain call from CUDA events, and the kernel's
+   own median device time from torch.profiler: local flow at k = 3 and k = 5, on one surface and on the
    fidelity preset's 8-surface snapshot chain; its correction mode
    (fold_center=False) at k = 3 and 5 on chains of 3 (coarse) and 17
    (full) surfaces; the general kernel at k = 7 and 9 in both fold modes
    on chains of 1 and 9; aperture with 11 scales and once at 260 x 346
    with the y-clamp quirk;
-3. chunk_size=1 on the card against the float64 NumPy oracle
+3. the kernels' halo modes (the row shards of the halo engine,
+   farms_tpu_torch/parallel/halo.py) at 320 x 320 cut into 1, 2 and 4
+   bands (320, 160 and 80 rows: the shards of `--devices 1`, 2 and 4):
+   local flow on each band plus its R exchanged rows (cut from the
+   zero-padded surfaces) at k = 3 and 5 on chains of 1 and 8, correction
+   mode on a 3-surface chain and the general kernel at k = 7; aperture on
+   each band of the float64 integral (0 above the sensor, its total row
+   below). Each bitwise against its plain halo mode on the card and
+   against the rows of the whole-sensor kernel's output, with the same
+   times for one interior 80-row band and for the one 320-row band;
+4. chunk_size=1 on the card against the float64 NumPy oracle
    (farms_tpu_torch/pipeline/oracle.py) on a translating-bar stream;
-4. the main paths through the CLI on a 1,048,576-event stream (320 x 320,
+5. the main paths through the CLI on a 1,048,576-event stream (320 x 320,
    5e6 ev/s, seed 0): the `benchmark` preset, the `fidelity` preset
    (snapshot chain, rank-2 correction) and the benchmark preset at
    --filtersize 7 on the first 262,144 events. For each, the kernels'
    launch counts over that run (every count is set to 0 just before it)
    and the same valid flags and scale ids as the same CLI run on the CPU
-   (plain versions) on every event.
+   (plain versions) on every event;
+6. the halo engine through the CLI (`--engine halo --devices 1`, every
+   halo mode of every kernel on one card) at both presets on the same
+   stream: its launch counts, and an output file equal byte for byte to
+   the single engine's card run;
+7. with two or more cards, `--engine halo --devices 2` (and 4, with four
+   cards) over NCCL at the benchmark preset, each rank on its own card:
+   the single engine's output file (phase 6 shows it is one rank's) byte
+   for byte on every line but those whose scale id differs at a float64
+   tie of the per-scale mean lengths (farms_tpu_torch/pipeline/ties.py on
+   the aperture inputs of the single engine's run). With one card it
+   prints why it did not run.
 
 The line before the last is the card's nvidia-smi name and power limit;
-the one before it a JSON summary of the kernels; the last line is
-{"ok": true, "device": {...}}. Any failure raises and exits non-zero,
-and without CUDA the script exits non-zero before printing any result.
+the one before it a JSON summary of the kernels, with each kernel's bound
+(the larger of the bytes it must move over 3.35 TB/s and its operations
+over 67 TFLOP/s in f32 and 34 TFLOP/s in f64, the H100 SXM's data-sheet
+peaks) for its whole-sensor case, (`halo_*`) for one 80-row band and
+(`halo1_*`) for the one band of 320 rows;
+the last line is {"ok": true, "device": {...}}. Any failure raises and
+exits non-zero, and without CUDA the script exits non-zero before
+printing any result.
 """
 from __future__ import annotations
 
 import contextlib
+import filecmp
 import io
 import json
 import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -52,6 +82,20 @@ STREAM_EVENTS = 1 << 20
 K7_EVENTS = 1 << 18
 TIMING_REPS = 30
 LOCAL_NAMES = ("accept", "a", "b", "dtdp", "cand")
+APERTURE_NAMES = ("tvx", "tvy", "scale")
+FLOW_COLUMNS = ("x", "y", "t", "pol", "r_true", "theta_true", "vx", "vy",
+                "r_local", "theta_local", "scale")
+NCCL_TIMEOUT = 600          # seconds for one multi-rank CLI run
+# each kernel's CUDA source and the Pallas kernel it replaces
+KERNEL_SOURCES = {"local_flow": ("local_flow.cu", 434),
+                  "local_flow_general": ("local_flow.cu", 171),
+                  "aperture": ("aperture.cu", 640)}
+BAND_COUNTS = (1, 2, 4)     # row shards of the halo-mode kernel checks
+# NVIDIA H100 SXM data-sheet peaks: HBM bytes/s, f32 and f64 FLOP/s
+# outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+PEAK_F64 = 34e12
 
 
 def _nvidia_smi() -> str:
@@ -80,6 +124,75 @@ def _median_ms(fn, reps: int = TIMING_REPS) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def _device_ms(fn, kernel: str, reps: int = TIMING_REPS):
+    """Median device time of one launch of the CUDA kernel whose name
+    contains `kernel`, over reps calls of fn, from torch.profiler's
+    device-side events: the kernel alone. (A CUDA-event interval around
+    one short call also holds the wrapper's host time, during which the
+    card waits.) None where three traces recorded no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):      # now and then a trace holds no device events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.self_device_time_total for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if times:
+            return float(np.median(times)) / 1e3
+    return None
+
+
+def _fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def _bound(n_bytes: float, f32_ops: float, f64_ops: float = 0.0) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over their peak rates."""
+    t_bytes = n_bytes / PEAK_BYTES
+    t_ops = f32_ops / PEAK_F32 + f64_ops / PEAK_F64
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def local_flow_bound(k: int, n_chain: int, band_rows: int, rows: int,
+                     Ha: int) -> dict:
+    """Bound of one local-flow call: it reads the chain and the center
+    (int32 [band_rows, Ha] each) once and writes five 4-byte [rows, Ha]
+    maps. Its f32 operations per pixel: for each of the 9 candidates, k^2
+    cells of (d, sum), a division and a compare; k^2 cells of the winner's
+    sums (d, yv, 5 products, 8 sums); 46 for the adjugate solve; k^2 cells
+    of the inlier test (d, yv, 2 products, 2 sums, abs, compare). The
+    chain fold's compares are integer and not counted."""
+    per_pixel = 9 * (2 * k * k + 2) + 15 * k * k + 46 + 8 * k * k
+    return _bound((n_chain + 1) * band_rows * Ha * 4 + 5 * rows * Ha * 4,
+                  per_pixel * rows * Ha)
+
+
+def aperture_bound(n_scales: int, rows: int, Ha: int,
+                   integ_rows: int = 0) -> dict:
+    """Bound of one aperture call. Whole sensor: it reads flow_len, vx and
+    vy and writes tvx, tvy and scale (4-byte [rows, Ha] maps each), and
+    builds the float64 integral on the way (f32: 3 products and a compare
+    per pixel; f64: 2 sums for each of 4 fields). Band mode: it reads the
+    float64 band [4, integ_rows, Ha + 1] and flow_vx/vy. Per pixel and
+    scale: 4 fields x 3 f64 corner sums; f32: a compare, 3 divisions and a
+    compare; one more compare per pixel."""
+    px = rows * Ha
+    if integ_rows:
+        return _bound(4 * integ_rows * (Ha + 1) * 8 + 5 * px * 4,
+                      (5 * n_scales + 1) * px, 12 * n_scales * px)
+    return _bound(6 * px * 4, (4 + 5 * n_scales + 1) * px,
+                  (8 + 12 * n_scales) * px)
 
 
 def _stamp_surfaces(W: int, H: int, seed: int):
@@ -180,16 +293,19 @@ def check_kernels(dev):
         torch.cuda.synchronize()
         err = _compare(label, got, want, LOCAL_NAMES)
         errs[name] = max(errs[name], err)
-        ms = _median_ms(lambda: kernels.local_flow(chain, center, cfg,
-                                                   fold_center=fold))
+        def run():
+            return kernels.local_flow(chain, center, cfg, fold_center=fold)
+
+        ms = _median_ms(run)
+        device_ms = _device_ms(run, "local_flow_kernel")
         plain_ms = _median_ms(lambda: plain.local_flow_core(
             chain, center, cfg, fold_center=fold))
         _phase(f"kernel {label}", t0,
                f"equal to plain at {SENSOR}x{SENSOR} (accept "
                f"{int(got[0].sum())}, windows {int((got[4] >= 0).sum())}); "
-               f"max_abs_err {err}; kernel {ms:.4f} ms, plain "
-               f"{plain_ms:.4f} ms")
-        return dict(ms=ms, plain_ms=plain_ms)
+               f"max_abs_err {err}; kernel {ms:.4f} ms (device "
+               f"{_fmt_ms(device_ms)}), plain {plain_ms:.4f} ms")
+        return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms)
 
     def dev_tensors(*arrays):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -203,7 +319,8 @@ def check_kernels(dev):
             times = local_case(f"local_flow k={k} seed={seed}", "local_flow",
                                cfg, chain, center, True)
         if k == 3:
-            results["local_flow"] = times
+            results["local_flow"] = dict(
+                times, **local_flow_bound(3, 1, SENSOR, SENSOR, SENSOR))
     # the fidelity slice's modes: the per-phase pass on its 8-surface
     # snapshot chain and correction on the coarse (3) and full (17) chains
     # at k = 3 and 5; the general kernel in both fold modes
@@ -219,9 +336,9 @@ def check_kernels(dev):
         times = local_case(f"{name} k={k} chain={n} fold_center={fold}",
                            name, cfg, chain, center, fold)
         if (k, n, fold) == (7, 1, True):
-            results["local_flow_general"] = times
+            results["local_flow_general"] = dict(
+                times, **local_flow_bound(7, 1, SENSOR, SENSOR, SENSOR))
 
-    ap_names = ("tvx", "tvy", "scale")
     for (W, H, quirk) in ((SENSOR, SENSOR, False), (260, 346, True)):
         t0 = time.perf_counter()
         cfg = FlowConfig(width=W, height=H, replicate_y_clamp_quirk=quirk)
@@ -229,24 +346,162 @@ def check_kernels(dev):
         got = kernels.aperture(*ins, cfg)
         want = plain.dense_aperture(*ins, cfg)
         torch.cuda.synchronize()
-        err = _compare(f"aperture {W}x{H}", got, want, ap_names)
+        err = _compare(f"aperture {W}x{H}", got, want, APERTURE_NAMES)
         errs["aperture"] = max(errs["aperture"], err)
         pooled = int((got[2] > 0).sum())
         ms = _median_ms(lambda: kernels.aperture(*ins, cfg))
+        device_ms = _device_ms(lambda: kernels.aperture(*ins, cfg),
+                               "aperture_kernel")
         plain_ms = _median_ms(lambda: plain.dense_aperture(*ins, cfg))
         if (W, H) == (SENSOR, SENSOR):
-            results["aperture"] = dict(ms=ms, plain_ms=plain_ms)
+            results["aperture"] = dict(
+                ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                **aperture_bound(cfg.num_scales, W, H))
         _phase(f"kernel aperture {W}x{H} quirk={quirk}", t0,
                f"equal to plain ({cfg.num_scales} scales, {pooled} pixels "
                f"pooled past scale 0); max_abs_err {err}; kernel {ms:.4f} "
-               f"ms, plain {plain_ms:.4f} ms")
+               f"ms (its kernel on the device {_fmt_ms(device_ms)}), plain "
+               f"{plain_ms:.4f} ms")
+    for name, r in results.items():
+        r["max_abs_err"] = errs[name]
+    return results
+
+
+def _band(arr, nb: int, i: int, h: int):
+    """Band i of nb over the rows of a [..., W, H] array: its rows and h
+    more on each side, zero past the sensor edge (what exchange_halo gives
+    each of nb ranks)."""
+    rows = arr.shape[-2] // nb
+    pad = [(0, 0)] * (arr.ndim - 2) + [(h, h), (0, 0)]
+    return np.ascontiguousarray(
+        np.pad(arr, pad)[..., i * rows:i * rows + rows + 2 * h, :])
+
+
+def check_halo_kernels(dev):
+    """Phase 3: the kernels' halo modes on 1, 2 and 4 row bands at 320 x
+    320.
+
+    Each band's kernel output must equal the plain halo mode's on the
+    card and the rows of the whole-sensor kernel's output bitwise: the
+    band holds the values the whole-sensor zero pad (or, for the
+    aperture, the whole integral) holds, read in the same order. Returns,
+    for each kernel, the median times and bound of its main case on one
+    interior 80-row band (band 1 of 4) and, prefixed `1_`, on the one band
+    of 320 rows, and the largest max abs error."""
+    import torch
+    from farms_tpu_torch.config import FlowConfig
+    from farms_tpu_torch.ops import dense_flow as plain
+    from farms_tpu_torch.ops import kernels
+
+    errs = {name: 0.0 for name in kernels.LAUNCHES}
+    results = {}
+
+    def band_case(label, name, run_kernel, run_plain, whole, names):
+        """run_*(nb, i) computes band i of nb; whole is the whole-sensor
+        output. Returns {nb: times} for the timed bands."""
+        t0 = time.perf_counter()
+        for nb in BAND_COUNTS:
+            rows = SENSOR // nb
+            for i in range(nb):
+                kernels.reset_launches()
+                got = run_kernel(nb, i)
+                if kernels.LAUNCHES[name] != 1 or sum(
+                        kernels.LAUNCHES.values()) != 1:
+                    raise AssertionError(f"{label} band {i} of {nb}: "
+                                         f"launches {kernels.LAUNCHES}")
+                want = run_plain(nb, i)
+                torch.cuda.synchronize()
+                errs[name] = max(errs[name], _compare(
+                    f"{label} band {i} of {nb}", got, want, names))
+                _compare(f"{label} band {i} of {nb} vs whole-sensor rows",
+                         got, [w[i * rows:(i + 1) * rows] for w in whole],
+                         names)
+        kernel = "aperture_kernel" if name == "aperture" else \
+            "local_flow_kernel"
+        times, said = {}, []
+        for nb, i in ((4, 1), (1, 0)):
+            ms = _median_ms(lambda: run_kernel(nb, i))
+            device_ms = _device_ms(lambda: run_kernel(nb, i), kernel)
+            plain_ms = _median_ms(lambda: run_plain(nb, i))
+            times[nb] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms)
+            said.append(f"{SENSOR // nb}-row band kernel {ms:.4f} ms "
+                        f"(device {_fmt_ms(device_ms)}), plain "
+                        f"{plain_ms:.4f} ms")
+        _phase(f"halo kernel {label}", t0,
+               f"bands of {', '.join(str(SENSOR // nb) for nb in BAND_COUNTS)}"
+               f" rows equal to the plain halo mode and to the whole-sensor "
+               f"rows; max_abs_err {errs[name]}; {'; '.join(said)}")
+        return times
+
+    def timed(name, times, bound):
+        """The result entry of a main case: 80-row band times and bound,
+        then the 320-row band's, prefixed 1_."""
+        entry = dict(times[4], **bound(SENSOR // 4))
+        entry.update({f"1_{k}": v for k, v in
+                      dict(times[1], **bound(SENSOR)).items()})
+        results[name] = entry
+
+    cases = [(k, n, True) for k in (3, 5) for n in (1, 8)]
+    cases += [(k, 3, False) for k in (3, 5)] + [(7, 1, True)]
+    for k, n, fold in cases:
+        cfg = FlowConfig(width=SENSOR, height=SENSOR, filter_size=k)
+        R = cfg.support_radius
+        surfs, t_post, rank2 = _stamp_chain(SENSOR, SENSOR, 200 + k + n, n)
+        center = t_post if fold else rank2
+        whole = kernels.local_flow(
+            *(torch.from_numpy(a).to(dev) for a in (surfs, center)), cfg,
+            fold_center=fold)
+        bands = {nb: [[torch.from_numpy(_band(a, nb, i, R)).to(dev)
+                       for a in (surfs, center)] for i in range(nb)]
+                 for nb in BAND_COUNTS}
+        name = "local_flow" if k in (3, 5) else "local_flow_general"
+
+        def run(fn, nb, i, cfg=cfg, R=R, fold=fold, bands=bands):
+            return fn(*bands[nb][i], cfg, fold_center=fold, halo=R,
+                      row_offset=i * (SENSOR // nb))
+
+        times = band_case(
+            f"{name} k={k} chain={n} fold_center={fold}", name,
+            lambda nb, i, run=run: run(kernels.local_flow, nb, i),
+            lambda nb, i, run=run: run(plain.local_flow_core, nb, i), whole,
+            LOCAL_NAMES)
+        if n == 1 and fold and k in (3, 7):
+            timed(name, times, lambda rows, k=k, R=R: local_flow_bound(
+                k, 1, rows + 2 * R, rows, SENSOR))
+
+    cfg = FlowConfig(width=SENSOR, height=SENSOR)
+    A = cfg.max_window + 1
+    ins = [torch.from_numpy(a).to(dev) for a in _flow_fields(SENSOR, SENSOR,
+                                                               6)]
+    whole = kernels.aperture(*ins, cfg)
+    integ = plain.build_integral(*ins)
+    full = torch.cat([torch.zeros_like(integ[:, :A]), integ,
+                      integ[:, -1:].expand(-1, A, -1)], 1)
+    ap_bands = {}
+    for nb in BAND_COUNTS:
+        rows = SENSOR // nb
+        ap_bands[nb] = [
+            ([a[i * rows:(i + 1) * rows] for a in ins],
+             full[:, i * rows:(i + 1) * rows + 2 * A + 1].contiguous())
+            for i in range(nb)]
+
+    def run_ap(fn, nb, i):
+        core, band = ap_bands[nb][i]
+        return fn(*core, cfg, halo=A, integ=band)
+
+    times = band_case("aperture band", "aperture",
+                      lambda nb, i: run_ap(kernels.aperture, nb, i),
+                      lambda nb, i: run_ap(plain.dense_aperture, nb, i),
+                      whole, APERTURE_NAMES)
+    timed("aperture", times, lambda rows: aperture_bound(
+        cfg.num_scales, rows, SENSOR, rows + 2 * A + 1))
     for name, r in results.items():
         r["max_abs_err"] = errs[name]
     return results
 
 
 def check_oracle(dev):
-    """Phase 3: chunk_size=1 on the card reproduces the float64 oracle."""
+    """Phase 4: chunk_size=1 on the card reproduces the float64 oracle."""
     from farms_tpu_torch.config import FlowConfig
     from farms_tpu_torch.events.io import synthetic_translating_bar
     from farms_tpu_torch.pipeline.engine import FlowEngine
@@ -289,24 +544,37 @@ def _run_cli(argv):
     return out, float(rate.group(1))
 
 
-def _cli_path(label, argv, base, n_events, want_launches):
-    """One main path through the CLI on the card, then on the CPU: the
-    kernels' launch counts over the card's run (every count set to 0 just
-    before it) and card vs CPU agreement. Returns (launches, rate)."""
+def _counted(label, run, want_launches):
+    """run() with every kernel's launch count set to 0 just before it;
+    the counts it leaves must be want_launches (0 for a kernel not
+    named). Returns (run's result, the counts)."""
     import torch
-    from farms_tpu_torch.events.io import read_flow_txt
     from farms_tpu_torch.ops import kernels
 
-    t0 = time.perf_counter()
     torch.cuda.synchronize()
     kernels.reset_launches()
-    _, rate = _run_cli(argv)
+    result = run()
     launches = dict(kernels.LAUNCHES)
-    card = read_flow_txt(base + "_FARMSOut_batch.txt")
     want = {k: want_launches.get(k, 0) for k in launches}
     if launches != want:
         raise AssertionError(f"{label}: launch counts {launches}, expected "
                              f"{want}")
+    return result, launches
+
+
+def _cli_path(label, argv, base, n_events, want_launches, keep=None):
+    """One main path through the CLI on the card, then on the CPU: the
+    kernels' launch counts over the card's run and card vs CPU agreement.
+    The card's output file is copied to `keep` if given. Returns
+    (launches, rate)."""
+    from farms_tpu_torch.events.io import read_flow_txt
+
+    t0 = time.perf_counter()
+    (_, rate), launches = _counted(label, lambda: _run_cli(argv),
+                                   want_launches)
+    if keep:
+        shutil.copyfile(base + "_FARMSOut_batch.txt", keep)
+    card = read_flow_txt(base + "_FARMSOut_batch.txt")
     if len(card) != n_events or not np.isfinite(card.r_true).all():
         raise AssertionError(f"{label}: card output has {len(card)} rows "
                              "or non-finite values")
@@ -335,9 +603,9 @@ def _cli_path(label, argv, base, n_events, want_launches):
     return launches, rate
 
 
-def check_main_paths(work):
-    """Phase 4: the benchmark and fidelity presets and --filtersize 7
-    through the CLI, card vs CPU."""
+def write_stream(work) -> str:
+    """The CLI phases' 1,048,576-event stream (320 x 320, 5e6 ev/s, seed
+    0) as x y t p text in `work`; returns its base path."""
     from farms_tpu_torch.events.io import (synthetic_random_events,
                                            write_events_txt)
 
@@ -347,28 +615,174 @@ def check_main_paths(work):
     base = os.path.join(work, "events")
     write_events_txt(ev, base)
     _phase("stream", t0, f"{len(ev)} events written as x y t p text")
+    return base
 
-    argv = ["--filename", base, "--width", str(SENSOR), "--height",
-            str(SENSOR)]
+
+def _stream_argv(base, preset):
+    return ["--filename", base, "--width", str(SENSOR), "--height",
+            str(SENSOR), "--preset", preset]
+
+
+def _preset_launches(steps):
+    """Launches of `steps` micro-steps at each preset: 2 sub-phases per
+    step, each a local-flow and an aperture pass; the fidelity preset adds
+    one correction-mode local-flow pass per step."""
+    return {"benchmark": {"local_flow": 2 * steps, "aperture": 2 * steps},
+            "fidelity": {"local_flow": 3 * steps, "aperture": 2 * steps}}
+
+
+def check_main_paths(base, work):
+    """Phase 5: the benchmark and fidelity presets and --filtersize 7
+    through the CLI, card vs CPU. Returns ({label: (launches, rate)},
+    {preset: copy of the card's output file})."""
     steps = STREAM_EVENTS // 131072          # micro-steps at chunk 131072
     k7_steps = K7_EVENTS // 131072
-    paths = {
-        # 2 sub-phases per step, each a local-flow and an aperture pass
-        "benchmark": (argv + ["--preset", "benchmark"], STREAM_EVENTS,
-                      {"local_flow": 2 * steps, "aperture": 2 * steps}),
-        # plus one correction-mode local-flow pass per step
-        "fidelity": (argv + ["--preset", "fidelity"], STREAM_EVENTS,
-                     {"local_flow": 3 * steps, "aperture": 2 * steps}),
-        # one call of exactly the stream's steps (a call runs
-        # --steps-per-scan steps, padding the last ones)
-        "benchmark k=7": (argv + ["--preset", "benchmark", "--filtersize",
-                                  "7", "--numEvents", str(K7_EVENTS),
-                                  "--steps-per-scan", str(k7_steps)],
-                          K7_EVENTS, {"local_flow_general": 2 * k7_steps,
-                                      "aperture": 2 * k7_steps}),
-    }
-    return {label: _cli_path(label, path_argv, base, n, want)
-            for label, (path_argv, n, want) in paths.items()}
+    results, card_files = {}, {}
+    for preset, want in _preset_launches(steps).items():
+        card_files[preset] = os.path.join(work, f"single_{preset}.txt")
+        results[preset] = _cli_path(preset, _stream_argv(base, preset), base,
+                                    STREAM_EVENTS, want, card_files[preset])
+    # one call of exactly the stream's steps (a call runs --steps-per-scan
+    # steps, padding the last ones)
+    results["benchmark k=7"] = _cli_path(
+        "benchmark k=7", _stream_argv(base, "benchmark") + [
+            "--filtersize", "7", "--numEvents", str(K7_EVENTS),
+            "--steps-per-scan", str(k7_steps)],
+        base, K7_EVENTS, {"local_flow_general": 2 * k7_steps,
+                          "aperture": 2 * k7_steps})
+    return results, card_files
+
+
+def check_halo_paths(base, card_files):
+    """Phase 6: `--engine halo --devices 1` through the CLI at both
+    presets on the card: every halo mode of every kernel. Its launch
+    counts, and its output file equal byte for byte to the single
+    engine's card run (at one rank the bands hold the whole sensor's
+    values and the band integral is the whole float64 integral).
+    Returns {label: (launches, rate)}."""
+    from farms_tpu_torch.events.io import read_flow_txt
+
+    steps = STREAM_EVENTS // 131072
+    results = {}
+    for preset, want in _preset_launches(steps).items():
+        label = f"halo {preset}"
+        argv = _stream_argv(base, preset) + ["--engine", "halo",
+                                             "--devices", "1"]
+        t0 = time.perf_counter()
+        (_, rate), launches = _counted(label, lambda: _run_cli(argv), want)
+        out = base + "_FARMSOut_batch.txt"
+        if not filecmp.cmp(out, card_files[preset], shallow=False):
+            got, ref = read_flow_txt(out), read_flow_txt(card_files[preset])
+            diff = (f"{len(got)} rows, not {len(ref)}" if len(got) != len(ref)
+                    else {c: int((getattr(got, c) != getattr(ref, c)).sum())
+                          for c in FLOW_COLUMNS})
+            raise AssertionError(f"{label}: output differs from the single "
+                                 f"engine's card run: {diff}")
+        _phase(f"cli {label} cuda", t0,
+               f"launches {launches}; output file equal byte for byte to "
+               f"the single engine's card run; [Benchmark Main] rate "
+               f"{rate:.1f} events/sec")
+        results[label] = (launches, rate)
+    return results
+
+
+def _cli_process(argv):
+    """The CLI in a process of its own, whose ranks are its children:
+    returns its [Benchmark Main] rate. On a timeout its whole process
+    group is killed."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "farms_tpu_torch.cli", *argv], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=NCCL_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise RuntimeError(f"cli exited {proc.returncode}:\n{out}\n{err}")
+    return float(re.search(r"with rate of : (\S+) events/sec",
+                           out).group(1))
+
+
+def check_nccl(base, work):
+    """Phase 7: `--engine halo --devices N` over NCCL (N = 2, and 4 with
+    four cards) at the benchmark preset, against the single engine's run
+    on cuda:0 (phase 6 shows one rank's output is that run's): its output
+    file byte for byte on every line whose scale id is the single
+    engine's, and scale ids that differ only at float64 ties. Returns
+    {label: rate}; with fewer than two cards it prints why it did not
+    run."""
+    import torch
+    from farms_tpu_torch import cli
+    from farms_tpu_torch.events.io import (load_events_txt, read_flow_txt,
+                                           write_flow_txt)
+    from farms_tpu_torch.ops import kernels
+    from farms_tpu_torch.pipeline.engine import FlowEngine
+    from farms_tpu_torch.pipeline.ties import scale_ties
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"[phase nccl] not run: `--engine halo --devices 2` over NCCL "
+              f"needs 2 CUDA devices, this machine has {cards}", flush=True)
+        return {}
+    t0 = time.perf_counter()
+    argv = _stream_argv(base, "benchmark")
+    args = cli.build_parser().parse_args(argv)
+    cfg = cli.build_config(args)
+    ev = load_events_txt(base, args.num_events, layout=args.layout,
+                         time_unit=args.time_unit)
+    passes = []
+    aperture = kernels.aperture
+
+    def recording(flow_len, *a, **kw):
+        passes.append(flow_len.clone())
+        return aperture(flow_len, *a, **kw)
+
+    kernels.aperture = recording
+    try:
+        single = FlowEngine(cfg, device="cuda").process(ev)
+    finally:
+        kernels.aperture = aperture
+    ref_file = write_flow_txt(single, os.path.join(work, "nccl"))
+    ref = read_flow_txt(ref_file)
+    with open(ref_file) as fh:
+        ref_lines = fh.readlines()
+    _phase("nccl reference", t0, f"the single engine on cuda:0, "
+           f"{int((ref.r_local > 0).sum())} valid of {len(ref)}; "
+           f"{len(passes)} aperture inputs kept for the tie test")
+    rates = {}
+    for n in (2, 4):
+        if n > cards:
+            break
+        t0 = time.perf_counter()
+        rate = _cli_process(argv + ["--engine", "halo", "--devices", str(n)])
+        out = base + "_FARMSOut_batch.txt"
+        with open(out) as fh:
+            lines = fh.readlines()
+        if len(lines) != len(ref_lines):
+            raise AssertionError(f"nccl devices={n}: {len(lines)} rows")
+        got = read_flow_txt(out)
+        differ = ref.scale != got.scale
+        tied = differ & scale_ties(ref, got, passes, cfg)
+        if (differ & ~tied).any():
+            raise AssertionError(f"nccl devices={n}: {(differ & ~tied).sum()}"
+                                 " scale ids differ off float64 ties")
+        other = np.array([a != b for a, b in zip(lines, ref_lines)])
+        if (other & ~differ).any():
+            raise AssertionError(
+                f"nccl devices={n}: {(other & ~differ).sum()} lines with "
+                "the single engine's scale id differ from its output file")
+        _phase(f"nccl halo devices={n}", t0,
+               f"output file equal byte for byte to the single engine's on "
+               f"{int((~other).sum())} of {len(ref)} lines; the other "
+               f"{int(other.sum())} differ in the scale id, {int(tied.sum())}"
+               f" float64 ties of {int(differ.sum())} scale differences; "
+               f"[Benchmark Main] rate {rate:.1f} events/sec")
+        rates[f"halo benchmark devices={n}"] = rate
+    return rates
 
 
 def main() -> int:
@@ -383,8 +797,9 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = _nvidia_smi()
     kind = torch.cuda.get_device_name(0)
-    _phase("card", t0, f"nvidia-smi: {smi}; torch: {kind}; torch "
-           f"{torch.__version__}, CUDA {torch.version.cuda}")
+    _phase("card", t0, f"nvidia-smi: {smi}; torch: {kind} x "
+           f"{torch.cuda.device_count()}; torch {torch.__version__}, CUDA "
+           f"{torch.version.cuda}")
     t0 = time.perf_counter()
     lib = _build.build()
     _build.load()
@@ -393,22 +808,26 @@ def main() -> int:
            f"{os.path.relpath(lib)}")
 
     timings = check_kernels(dev)
+    halo_timings = check_halo_kernels(dev)
     check_oracle(dev)
     with tempfile.TemporaryDirectory() as work:
-        paths = check_main_paths(work)
-
-    sources = {"local_flow": ("local_flow.cu", 434),
-               "local_flow_general": ("local_flow.cu", 171),
-               "aperture": ("aperture.cu", 640)}
+        base = write_stream(work)
+        paths, card_files = check_main_paths(base, work)
+        paths.update(check_halo_paths(base, card_files))
+        rates = check_nccl(base, work)
+    rates.update({label: rate for label, (_, rate) in paths.items()})
     entries = []
-    for name, (src, line) in sources.items():
-        by_path = {label: counts[name] for label, (counts, _) in paths.items()}
+    for name, (src, line) in KERNEL_SOURCES.items():
+        by_path = {label: counts[name]
+                   for label, (counts, _) in paths.items()}
+        halo = {f"halo{k}" if k.startswith("1_") else f"halo_{k}": v
+                for k, v in halo_timings[name].items()}
         entries.append(dict(
-            name=name, route="cuda", source=f"farms_tpu_torch/csrc/{src}",
+            name=name, route="cuda",
+            source=f"farms_tpu_torch/csrc/{src}",
             replaces=f"farms_tpu/ops/pallas/kernels.py:{line}",
             launches=sum(by_path.values()), launches_by_path=by_path,
-            **timings[name]))
-    rates = {label: rate for label, (_, rate) in paths.items()}
+            library_ms=None, **timings[name], **halo))
     print(f"[rates] [Benchmark Main] events/sec by path: {rates}")
     print(json.dumps({"kernels": entries}))
     print(_nvidia_smi())

@@ -1,8 +1,9 @@
 // Local plane-fit flow, one thread per pixel.
 //
 // Replaces the two Pallas kernels behind local_flow_pallas
-// (farms_tpu/ops/pallas/kernels.py:341), in their default and their
-// correction (`t_center`, inc_center=False) modes:
+// (farms_tpu/ops/pallas/kernels.py:341), in their default, their
+// correction (`t_center`, inc_center=False) and their halo (`halo`,
+// `row_offset`: a row shard of parallel/halo.py) modes:
 // - `_local_flow_kernel_cached` (:434, k = 3 and 5) by the instances
 //   local_flow_kernel<1> and <2>, whose filter radius is a template
 //   constant, so every visit loop unrolls;
@@ -38,6 +39,17 @@
 // cell order as the plain version; built with -fmad=false the two agree
 // bitwise on one device. Stamp arithmetic is done in uint32 (signed
 // overflow is undefined in C++), and stamps pass 2^31 after 35.8 min.
+//
+// The halo mode changes only addressing, not the work or what bounds it:
+// the inputs are bands of `halo` >= R exchanged rows above and below the
+// shard's `rows` core rows, so staging reads band row halo + r, which the
+// tile's R-row halo keeps inside the band (the band already holds zeros
+// past the sensor edge, the values the whole-sensor zero fill gives);
+// coordinates and the window border checks use the global row
+// row_offset + r against the semantic sensor W x H, never the band or the
+// array; Ha, the array height, is the stride. On the same values a band's
+// outputs equal the whole-sensor kernel's rows bitwise. Without a halo the
+// band is the sensor: halo = row_offset = 0, rows = W, Ha = H.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -92,7 +104,8 @@ __device__ __forceinline__ Cell cell(const uint32_t* tile, int nfold,
 template <int FT>
 __global__ void __launch_bounds__(TX * TY)
 local_flow_kernel(const int32_t* __restrict__ chain, int S, int nfold,
-                  const int32_t* __restrict__ center, int W, int H, int f_rt,
+                  const int32_t* __restrict__ center, int band_rows, int rows,
+                  int halo, int row_offset, int W, int H, int Ha, int f_rt,
                   int min_evts, float det_threshold, float neg_ts,
                   int32_t* __restrict__ accept_out,
                   float* __restrict__ a_out, float* __restrict__ b_out,
@@ -106,27 +119,28 @@ local_flow_kernel(const int32_t* __restrict__ chain, int S, int nfold,
   const int PLANE = SX * SY;
   extern __shared__ uint32_t tile[];
 
-  const int x0 = blockIdx.y * tx;
+  const int r0 = blockIdx.y * tx;  // first core row of the tile
   const int y0 = blockIdx.x * TY;
   const int tid = threadIdx.y * TY + threadIdx.x;
-  const size_t WH = (size_t)W * H;
+  const size_t XH = (size_t)band_rows * Ha;
 
   for (int s = 0; s <= S; ++s) {
-    const int32_t* src = s < S ? chain + (size_t)s * WH : center;
+    const int32_t* src = s < S ? chain + (size_t)s * XH : center;
     uint32_t* dst = tile + s * PLANE;
     for (int i = tid; i < PLANE; i += tx * TY) {
-      const int gx = x0 - R + i / SY;
+      const int gb = halo + r0 - R + i / SY;  // band row
       const int gy = y0 - R + i % SY;
-      dst[i] = (gx >= 0 && gx < W && gy >= 0 && gy < H)
-                   ? (uint32_t)src[(size_t)gx * H + gy]
+      dst[i] = (gb >= 0 && gb < band_rows && gy >= 0 && gy < Ha)
+                   ? (uint32_t)src[(size_t)gb * Ha + gy]
                    : 0u;
     }
   }
   __syncthreads();
 
-  const int px = x0 + threadIdx.y;
+  const int r = r0 + threadIdx.y;
   const int py = y0 + threadIdx.x;
-  if (px >= W || py >= H) return;
+  if (r >= rows || py >= Ha) return;
+  const int px = row_offset + r;  // global row
   const int pos = (threadIdx.y + R) * SY + threadIdx.x + R;
   const uint32_t tc = tile[S * PLANE + pos];
   const float pxf = (float)px;
@@ -222,7 +236,7 @@ local_flow_kernel(const int32_t* __restrict__ chain, int S, int nfold,
     }
   }
 
-  const size_t o = (size_t)px * H + py;
+  const size_t o = (size_t)r * Ha + py;
   accept_out[o] = (local_ok && det_ok && inl >= min_evts) ? 1 : 0;
   a_out[o] = ac;
   b_out[o] = bcf;
@@ -232,11 +246,12 @@ local_flow_kernel(const int32_t* __restrict__ chain, int S, int nfold,
 
 template <int FT>
 int launch(const void* chain, int S, int fold_center, const void* center,
-           int W, int H, int F, int rows, int min_evts, float det_threshold,
+           int band_rows, int rows, int halo, int row_offset, int W, int H,
+           int Ha, int F, int tile_rows, int min_evts, float det_threshold,
            float neg_ts, void* accept, void* a, void* b, void* dtdp,
            void* cand, void* stream) {
   const int R = 2 * F;
-  const size_t smem = (size_t)(S + 1) * (rows + 2 * R) * (TY + 2 * R) *
+  const size_t smem = (size_t)(S + 1) * (tile_rows + 2 * R) * (TY + 2 * R) *
                       sizeof(uint32_t);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -244,13 +259,14 @@ int launch(const void* chain, int S, int fold_center, const void* center,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 block(TY, rows);
-  const dim3 grid((H + TY - 1) / TY, (W + rows - 1) / rows);
+  const dim3 block(TY, tile_rows);
+  const dim3 grid((Ha + TY - 1) / TY, (rows + tile_rows - 1) / tile_rows);
   local_flow_kernel<FT><<<grid, block, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(chain), S, fold_center ? S + 1 : S,
-      static_cast<const int32_t*>(center), W, H, F, min_evts, det_threshold,
-      neg_ts, static_cast<int32_t*>(accept), static_cast<float*>(a),
+      static_cast<const int32_t*>(center), band_rows, rows, halo, row_offset,
+      W, H, Ha, F, min_evts, det_threshold, neg_ts,
+      static_cast<int32_t*>(accept), static_cast<float*>(a),
       static_cast<float*>(b), static_cast<float*>(dtdp),
       static_cast<int32_t*>(cand));
   return (int)cudaGetLastError();
@@ -258,29 +274,37 @@ int launch(const void* chain, int S, int fold_center, const void* center,
 
 }  // namespace
 
-// C entry point. chain: int32 [S, W, H]; center and the outputs: [W, H],
-// all contiguous on the current device; fold_center 0 selects correction
+// C entry point. chain: int32 [S, band_rows, Ha]; center: [band_rows, Ha];
+// the outputs: [rows, Ha]; all contiguous on the current device, with
+// band_rows = rows + 2 * halo (halo 0, or at least the support radius 2F)
+// and row_offset the band's first core row in the sensor; W x H is the
+// semantic sensor of the border checks. fold_center 0 selects correction
 // mode. k = 3 and 5 run their instances with 16 tile rows; any other odd
 // k runs the general kernel with tile_rows in 1..16, the wrapper's choice,
 // so that (S + 1) * (tile_rows + 2R) * (32 + 2R) * 4 bytes fit shared
 // memory. Returns the launch's cudaError_t (cudaErrorInvalidValue for an
-// even k, k < 3 or tile_rows out of range).
+// even k, k < 3, tile_rows out of range or inconsistent band geometry).
 extern "C" int farms_local_flow(const void* chain, int S, int fold_center,
-                                const void* center, int W, int H,
-                                int filter_size, int tile_rows, int min_evts,
-                                float det_threshold, float neg_ts,
-                                void* accept, void* a, void* b, void* dtdp,
-                                void* cand, void* stream) {
-  if (filter_size == 3)
-    return launch<1>(chain, S, fold_center, center, W, H, 1, TX, min_evts,
-                     det_threshold, neg_ts, accept, a, b, dtdp, cand, stream);
-  if (filter_size == 5)
-    return launch<2>(chain, S, fold_center, center, W, H, 2, TX, min_evts,
-                     det_threshold, neg_ts, accept, a, b, dtdp, cand, stream);
-  if (filter_size < 3 || filter_size % 2 == 0 || tile_rows < 1 ||
-      tile_rows > TX || S < 1)
+                                const void* center, int band_rows, int rows,
+                                int halo, int row_offset, int W, int H,
+                                int Ha, int filter_size, int tile_rows,
+                                int min_evts, float det_threshold,
+                                float neg_ts, void* accept, void* a, void* b,
+                                void* dtdp, void* cand, void* stream) {
+  const int F = filter_size / 2;
+  if (filter_size < 3 || filter_size % 2 == 0 || S < 1 || rows < 1 ||
+      Ha < 1 || band_rows != rows + 2 * halo || (halo != 0 && halo < 2 * F))
     return (int)cudaErrorInvalidValue;
-  return launch<0>(chain, S, fold_center, center, W, H, filter_size / 2,
-                   tile_rows, min_evts, det_threshold, neg_ts, accept, a, b,
-                   dtdp, cand, stream);
+  if (filter_size == 3)
+    return launch<1>(chain, S, fold_center, center, band_rows, rows, halo,
+                     row_offset, W, H, Ha, 1, TX, min_evts, det_threshold,
+                     neg_ts, accept, a, b, dtdp, cand, stream);
+  if (filter_size == 5)
+    return launch<2>(chain, S, fold_center, center, band_rows, rows, halo,
+                     row_offset, W, H, Ha, 2, TX, min_evts, det_threshold,
+                     neg_ts, accept, a, b, dtdp, cand, stream);
+  if (tile_rows < 1 || tile_rows > TX) return (int)cudaErrorInvalidValue;
+  return launch<0>(chain, S, fold_center, center, band_rows, rows, halo,
+                   row_offset, W, H, Ha, F, tile_rows, min_evts,
+                   det_threshold, neg_ts, accept, a, b, dtdp, cand, stream);
 }

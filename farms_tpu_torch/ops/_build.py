@@ -27,13 +27,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # chain, S, fold_center, center, W, H, filter_size, tile_rows,
-    # min_evts, det_threshold, neg_ts, accept, a, b, dtdp, cand, stream
-    "farms_local_flow": (_P, _I, _I, _P, _I, _I, _I, _I, _I, _F, _F,
-                         _P, _P, _P, _P, _P, _P),
-    # integ, W, H, y_clip, n_scales, jump, flow_vx, flow_vy,
-    # tvx, tvy, scale, stream
-    "farms_aperture": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    # chain, S, fold_center, center, band_rows, rows, halo, row_offset,
+    # W, H, Ha, filter_size, tile_rows, min_evts, det_threshold, neg_ts,
+    # accept, a, b, dtdp, cand, stream
+    "farms_local_flow": (_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _F, _F, _P, _P, _P, _P, _P, _P),
+    # integ, integ_rows, rows, halo, Ha, y_clip, n_scales, jump, flow_vx,
+    # flow_vy, tvx, tvy, scale, stream
+    "farms_aperture": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                       _P),
 }
 
 _lib = None

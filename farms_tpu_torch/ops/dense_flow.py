@@ -36,35 +36,45 @@ def _full(like: torch.Tensor, value: float) -> torch.Tensor:
 
 
 def _cell_maps(chain: torch.Tensor, center: torch.Tensor, cfg: FlowConfig,
-               fold_center: bool):
+               fold_center: bool, halo: int = 0, row_offset: int = 0):
     """Per-offset causal-view quantities over the (2R+1)^2 support.
 
     The causal fold runs over the chain, then the center surface when
-    `fold_center`. Returns stacked [(2R+1)^2, W, H] maps (d, eli, u, v,
-    yv), offset index (ox + R) * (2R + 1) + (oy + R).
+    `fold_center`. With `halo` > 0 the surfaces are bands of `halo` rows
+    above and below the core rows (local_flow_core). Returns stacked
+    [(2R+1)^2, rows, Ha] maps (d, eli, u, v, yv) of the core rows, offset
+    index (ox + R) * (2R + 1) + (oy + R).
     """
-    W, H = center.shape
+    rows = center.shape[0] - 2 * halo
+    Ha = center.shape[1]
     R = cfg.support_radius
     folded = torch.cat([chain, center[None]], 0) if fold_center else chain
-    # out-of-sensor cells read 0 (never written), the kernels' pad
-    surfs = F.pad(folded, (R, R, R, R))
-    px = torch.arange(W, dtype=torch.int32, device=center.device)[:, None]
-    py = torch.arange(H, dtype=torch.int32, device=center.device)[None, :]
-    pxf = px.to(torch.float32).expand(W, H)
-    pyf = py.to(torch.float32).expand(W, H)
-    t_c = center
+    if halo:
+        # the band already holds the neighbour rows (zeros past the sensor
+        # edge): keep exactly R of them on each side, pad only y
+        surfs = F.pad(folded[:, halo - R:halo + rows + R], (R, R))
+    else:
+        # out-of-sensor cells read 0 (never written), the kernels' pad
+        surfs = F.pad(folded, (R, R, R, R))
+    px = (torch.arange(rows, dtype=torch.int32, device=center.device)[:, None]
+          + row_offset)
+    py = torch.arange(Ha, dtype=torch.int32, device=center.device)[None, :]
+    pxf = px.to(torch.float32).expand(rows, Ha)
+    pyf = py.to(torch.float32).expand(rows, Ha)
+    t_c = center[halo:halo + rows]
     neg_ts = -cfg.ts_to_sec
     D, ELI, U, V, YV = [], [], [], [], []
     for ox in range(-R, R + 1):
         for oy in range(-R, R + 1):
             if ox == 0 and oy == 0:
-                d = torch.zeros((W, H), dtype=torch.float32, device=t_c.device)
+                d = torch.zeros((rows, Ha), dtype=torch.float32,
+                                device=t_c.device)
                 # eligibility: stamp1 not in {0, 1}, an unsigned-domain test
                 eli = (t_c != 0) & (t_c != 1)
                 u = torch.zeros_like(d)
                 v = torch.zeros_like(d)
             else:
-                sh = surfs[:, R + ox:R + ox + W, R + oy:R + oy + H]
+                sh = surfs[:, R + ox:R + ox + rows, R + oy:R + oy + Ha]
                 # the neighbor's newest chain value not in the center's
                 # future: order stamp1 (uint32 in int32) values through the
                 # int32 difference, exact mod 2^32; a signed compare of the
@@ -93,7 +103,8 @@ def _cell_maps(chain: torch.Tensor, center: torch.Tensor, cfg: FlowConfig,
 
 
 def local_flow_core(chain: torch.Tensor, center: torch.Tensor,
-                    cfg: FlowConfig, fold_center: bool = True):
+                    cfg: FlowConfig, fold_center: bool = True,
+                    halo: int = 0, row_offset: int = 0):
     """Local plane fit for every pixel against its causal surface view.
 
     `chain` is the int32 [S, W, H] stack of stamp1 surfaces before the
@@ -108,18 +119,32 @@ def local_flow_core(chain: torch.Tensor, center: torch.Tensor,
     rank-2 surface of the correction pass; pixels with 0 give garbage,
     which the engine never reads).
 
+    Halo mode (`halo` >= R, a row shard of parallel/halo.py): chain and
+    center are bands [S, rows + 2*halo, Ha] and [rows + 2*halo, Ha] that
+    carry `halo` exchanged neighbour rows on each side (zeros past the
+    sensor edge, the same values the whole-sensor pad reads), outputs
+    cover the rows core rows, and `row_offset`, the shard's first global
+    row, keeps coordinates and border checks global: the border rules use
+    the semantic cfg.width and cfg.height, never the band or array extent.
+
     Returns exactly what the CUDA kernels write: accept i32, a f32, b f32,
     dtdp f32 and the winning candidate id i32 in scan order (-1 where no
-    candidate window is in bounds), each [W, H].
+    candidate window is in bounds), each [rows, Ha] ([W, H] without halo).
     """
     W, H = cfg.width, cfg.height        # semantic bounds (border rules)
     f = cfg.f_rad
     R = cfg.support_radius
+    if halo and halo < R:
+        raise ValueError(f"halo {halo} < support_radius {R}")
     side = 2 * R + 1
     dev = center.device
-    D, ELI, U, V, YV = _cell_maps(chain, center, cfg, fold_center)
-    px = torch.arange(W, dtype=torch.int32, device=dev)[:, None]
-    py = torch.arange(H, dtype=torch.int32, device=dev)[None, :]
+    rows = center.shape[0] - 2 * halo
+    Ha = center.shape[1]
+    D, ELI, U, V, YV = _cell_maps(chain, center, cfg, fold_center, halo,
+                                  row_offset)
+    px = (torch.arange(rows, dtype=torch.int32, device=dev)[:, None]
+          + row_offset)
+    py = torch.arange(Ha, dtype=torch.int32, device=dev)[None, :]
 
     cand_offsets = [(a, b) for a in (-f, 0, f) for b in (-f, 0, f)]
     win_cells = [(wx, wy) for wx in range(-f, f + 1)
@@ -129,8 +154,8 @@ def local_flow_core(chain: torch.Tensor, center: torch.Tensor,
 
     # ---- scores of the 9 candidate windows, first strict minimum ----
     inf = float("inf")
-    best = torch.full((W, H), inf, dtype=torch.float32, device=dev)
-    bc = torch.zeros((W, H), dtype=torch.int32, device=dev)
+    best = torch.full((rows, Ha), inf, dtype=torch.float32, device=dev)
+    bc = torch.zeros((rows, Ha), dtype=torch.int32, device=dev)
     for ci, (a, b) in enumerate(cand_offsets):
         ssum = None
         for wx, wy in win_cells:
@@ -186,7 +211,7 @@ def local_flow_core(chain: torch.Tensor, center: torch.Tensor,
 
     # ---- inlier count with the winner's plane (vFlow.cpp:1360-1366) ----
     half = dtdp * 0.5
-    inl = torch.zeros((W, H), dtype=torch.int32, device=dev)
+    inl = torch.zeros((rows, Ha), dtype=torch.int32, device=dev)
     for eli, u, v, yv in cells:
         hit = (torch.abs(a_coef * u + b_coef * v - yv) < half) & eli
         inl = inl + hit.to(torch.int32)
@@ -248,7 +273,7 @@ def aperture_y_clip(cfg: FlowConfig) -> int:
 
 def dense_aperture(flow_len: torch.Tensor, flow_vx: torch.Tensor,
                    flow_vy: torch.Tensor, cfg: FlowConfig,
-                   want_ids: bool = False):
+                   want_ids: bool = False, halo: int = 0, integ=None):
     """Multi-scale aperture pooling for every pixel (plain path).
 
     The plain version of the aperture kernel, over the integral image of
@@ -259,22 +284,39 @@ def dense_aperture(flow_len: torch.Tensor, flow_vx: torch.Tensor,
     (vFlow.cpp:1086-1094). The freshness (KILL_OLD_FLOW_TIME) gate is
     applied upstream by state.surfaces.kill_stale_flow. Returns
     (true_vx, true_vy, scale).
+
+    Band mode (a row shard of parallel/halo.py, the counterpart of
+    `farms_tpu.ops.dense_flow.dense_aperture(halo=, integ=)`): `integ` is
+    a pre-assembled float64 integral band [4, rows + 2*halo + 1, Ha + 1]
+    with `halo` >= max_window + 1 rows of global integral values on each
+    side of the core rows (assemble_integral_band), and flow_* are the
+    core rows [rows, Ha], read only for the fallback. A pixel's corner
+    rows are then halo + r + s + 1 and halo + r - s: the band's rows above
+    the sensor hold 0 and those below it the sensor's total row, so the
+    reference's x clamp needs no clamp here; y clamps as without a band.
     """
-    integ = build_integral(flow_len, flow_vx, flow_vy)
-    W, H = cfg.width, cfg.height
+    if integ is None:
+        integ = build_integral(flow_len, flow_vx, flow_vy)
+    elif halo < cfg.max_window + 1:
+        raise ValueError(f"halo {halo} < max_window + 1 "
+                         f"{cfg.max_window + 1}")
+    rows, Ha = flow_vx.shape
     dev = flow_vx.device
     yc = aperture_y_clip(cfg)
-    px = torch.arange(W, dtype=torch.int64, device=dev)
-    py = torch.arange(H, dtype=torch.int64, device=dev)
+    xi = integ.shape[1] - 1            # last integral row a corner may read
+    px = torch.arange(rows, dtype=torch.int64, device=dev) + halo
+    py = torch.arange(Ha, dtype=torch.int64, device=dev)
     one = _full(flow_vx, 1.0)
-    best_ml = torch.full((W, H), -1.0, dtype=torch.float32, device=dev)
-    best_vx = torch.zeros((W, H), dtype=torch.float32, device=dev)
+    best_ml = torch.full((rows, Ha), -1.0, dtype=torch.float32, device=dev)
+    best_vx = torch.zeros((rows, Ha), dtype=torch.float32, device=dev)
     best_vy = torch.zeros_like(best_vx)
-    best_s = torch.zeros((W, H), dtype=torch.int32, device=dev)
+    best_s = torch.zeros((rows, Ha), dtype=torch.int32, device=dev)
     mls = []
     for s in cfg.scales:
-        xh = torch.clamp(px + s + 1, 0, W)[:, None]
-        xl = torch.clamp(px - s, 0, W)[:, None]
+        # the clamp is the reference's x clamp on a whole-sensor integral
+        # and never binds on a band
+        xh = torch.clamp(px + s + 1, 0, xi)[:, None]
+        xl = torch.clamp(px - s, 0, xi)[:, None]
         yh = torch.clamp(py + s + 1, 0, yc)[None, :]
         yl = torch.clamp(py - s, 0, yc)[None, :]
         box = (integ[:, xh, yh] - integ[:, xl, yh]

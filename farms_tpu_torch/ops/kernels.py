@@ -10,7 +10,8 @@ fallback between the two.
 
 Each wrapper counts its kernel launches in `LAUNCHES` (only where it
 launches; plain-path calls do not count), so a run can show that its main
-path went through the kernels.
+path went through the kernels; a kernel's halo-mode launches (the row
+shards of parallel/halo.py) count under the same name.
 """
 from __future__ import annotations
 
@@ -79,37 +80,67 @@ def local_flow_tile_rows(filter_size: int, n_chain: int) -> int:
         "(ROADMAP Queue 2 item 4)")
 
 
+def _band_rows(t: torch.Tensor, name: str, cfg: FlowConfig, halo: int,
+               row_offset: int) -> int:
+    """Core rows of a [rows + 2*halo, Ha] band (or of a [W, H] surface
+    without halo), checked against the config's array geometry."""
+    if t.dim() != 2:
+        raise ValueError(f"{name} must be 2-D, got {tuple(t.shape)}")
+    if not halo:
+        expect = (cfg.width, cfg.height)
+    else:
+        rows = t.shape[0] - 2 * halo
+        if rows < 1 or row_offset < 0 or row_offset + rows > cfg.array_width:
+            raise ValueError(f"{name}: band of {t.shape[0]} rows with halo "
+                             f"{halo} at row {row_offset} does not fit the "
+                             f"array width {cfg.array_width}")
+        expect = (t.shape[0], cfg.array_height)
+    if tuple(t.shape) != expect:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{expect}")
+    return t.shape[0] - 2 * halo
+
+
 def local_flow(chain: torch.Tensor, center: torch.Tensor, cfg: FlowConfig,
-               fold_center: bool = True):
+               fold_center: bool = True, halo: int = 0, row_offset: int = 0):
     """Local plane fit; contract of dense_flow.local_flow_core.
 
     chain int32 [S, W, H], center int32 [W, H] (stamp1); fold_center=False
-    is the correction mode. Returns accept i32, a f32, b f32, dtdp f32,
-    cand i32, each [W, H].
+    is the correction mode. Halo mode (halo >= R, parallel/halo.py): chain
+    [S, rows + 2*halo, Ha] and center [rows + 2*halo, Ha] bands of a row
+    shard whose first global row is row_offset. Returns accept i32, a f32,
+    b f32, dtdp f32, cand i32, each [W, H], or [rows, Ha] in halo mode.
     """
     if center.device.type == "cpu":
-        return local_flow_core(chain, center, cfg, fold_center)
+        return local_flow_core(chain, center, cfg, fold_center, halo,
+                               row_offset)
     if center.device.type != "cuda":
         raise ValueError(f"no local-flow kernel for device {center.device}")
-    W, H = cfg.width, cfg.height
+    R = cfg.support_radius
+    if halo and halo < R:
+        raise ValueError(f"halo {halo} < support_radius {R}")
     dev = center.device
-    _check(center, "center", torch.int32, (W, H), dev)
+    rows = _band_rows(center, "center", cfg, halo, row_offset)
+    Xb, Ha = center.shape
+    _check(center, "center", torch.int32, (Xb, Ha), dev)
     if chain.dim() != 3 or chain.shape[0] < 1:
-        raise ValueError(f"chain must be [S >= 1, W, H], got {tuple(chain.shape)}")
-    _check(chain, "chain", torch.int32, (chain.shape[0], W, H), dev)
+        raise ValueError(f"chain must be [S >= 1, {Xb}, {Ha}], got "
+                         f"{tuple(chain.shape)}")
+    _check(chain, "chain", torch.int32, (chain.shape[0], Xb, Ha), dev)
     S = chain.shape[0]
-    rows = local_flow_tile_rows(cfg.filter_size, S)
+    tile_rows = local_flow_tile_rows(cfg.filter_size, S)
     lib = _build.load()
-    accept = torch.empty((W, H), dtype=torch.int32, device=dev)
-    a = torch.empty((W, H), dtype=torch.float32, device=dev)
+    accept = torch.empty((rows, Ha), dtype=torch.int32, device=dev)
+    a = torch.empty((rows, Ha), dtype=torch.float32, device=dev)
     b = torch.empty_like(a)
     dtdp = torch.empty_like(a)
     cand = torch.empty_like(accept)
     rc = lib.farms_local_flow(
-        chain.data_ptr(), S, int(fold_center), center.data_ptr(), W, H,
-        cfg.filter_size, rows, cfg.min_evts_on_plane, cfg.det_threshold,
-        -cfg.ts_to_sec, accept.data_ptr(), a.data_ptr(), b.data_ptr(),
-        dtdp.data_ptr(), cand.data_ptr(), _stream(dev))
+        chain.data_ptr(), S, int(fold_center), center.data_ptr(), Xb, rows,
+        halo, row_offset, cfg.width, cfg.height, Ha, cfg.filter_size,
+        tile_rows, cfg.min_evts_on_plane, cfg.det_threshold, -cfg.ts_to_sec,
+        accept.data_ptr(), a.data_ptr(), b.data_ptr(), dtdp.data_ptr(),
+        cand.data_ptr(), _stream(dev))
     name = ("local_flow" if cfg.filter_size in (3, 5)
             else "local_flow_general")
     _raise_on(rc, name)
@@ -118,32 +149,51 @@ def local_flow(chain: torch.Tensor, center: torch.Tensor, cfg: FlowConfig,
 
 
 def aperture(flow_len: torch.Tensor, flow_vx: torch.Tensor,
-             flow_vy: torch.Tensor, cfg: FlowConfig):
+             flow_vy: torch.Tensor, cfg: FlowConfig, halo: int = 0,
+             integ=None):
     """Multi-scale aperture pooling; contract of dense_flow.dense_aperture.
 
     f32 [W, H] flow surfaces in; (true_vx f32, true_vy f32, scale i32) out.
     The integral image is built with the plain version's torch ops, then
-    the kernel pools every scale.
+    the kernel pools every scale. Band mode (parallel/halo.py): `integ` is
+    the float64 integral band [4, rows + 2*halo + 1, Ha + 1] of a row
+    shard, halo >= max_window + 1, and the flow surfaces and outputs are
+    the shard's core rows [rows, Ha].
     """
+    if (integ is None) != (halo == 0):
+        raise ValueError("an integral band comes with its halo, and a halo "
+                         "with its band")
     if flow_len.device.type == "cpu":
-        return dense_aperture(flow_len, flow_vx, flow_vy, cfg)
+        return dense_aperture(flow_len, flow_vx, flow_vy, cfg, halo=halo,
+                              integ=integ)
     if flow_len.device.type != "cuda":
         raise ValueError(f"no aperture kernel for device {flow_len.device}")
-    W, H = cfg.width, cfg.height
+    if halo and halo < cfg.max_window + 1:
+        raise ValueError(f"halo {halo} < max_window + 1 "
+                         f"{cfg.max_window + 1}")
     dev = flow_len.device
+    shape = (cfg.width, cfg.height) if integ is None else flow_len.shape
+    if integ is not None and (flow_len.dim() != 2
+                              or shape[1] != cfg.array_height):
+        raise ValueError(f"flow_len has shape {tuple(shape)}, expected "
+                         f"[rows, {cfg.array_height}]")
     for name, t in (("flow_len", flow_len), ("flow_vx", flow_vx),
                     ("flow_vy", flow_vy)):
-        _check(t, name, torch.float32, (W, H), dev)
-    integ = build_integral(flow_len, flow_vx, flow_vy)
-    _check(integ, "integral", torch.float64, (4, W + 1, H + 1), dev)
+        _check(t, name, torch.float32, shape, dev)
+    rows, Ha = shape
+    if integ is None:
+        integ = build_integral(flow_len, flow_vx, flow_vy)
+    _check(integ, "integral", torch.float64, (4, rows + 2 * halo + 1, Ha + 1),
+           dev)
     lib = _build.load()
-    tvx = torch.empty((W, H), dtype=torch.float32, device=dev)
+    tvx = torch.empty((rows, Ha), dtype=torch.float32, device=dev)
     tvy = torch.empty_like(tvx)
-    scale = torch.empty((W, H), dtype=torch.int32, device=dev)
+    scale = torch.empty((rows, Ha), dtype=torch.int32, device=dev)
     rc = lib.farms_aperture(
-        integ.data_ptr(), W, H, aperture_y_clip(cfg), cfg.num_scales,
-        cfg.window_jump, flow_vx.data_ptr(), flow_vy.data_ptr(),
-        tvx.data_ptr(), tvy.data_ptr(), scale.data_ptr(), _stream(dev))
+        integ.data_ptr(), integ.shape[1], rows, halo, Ha,
+        aperture_y_clip(cfg), cfg.num_scales, cfg.window_jump,
+        flow_vx.data_ptr(), flow_vy.data_ptr(), tvx.data_ptr(),
+        tvy.data_ptr(), scale.data_ptr(), _stream(dev))
     _raise_on(rc, "aperture")
     LAUNCHES["aperture"] += 1
     return tvx, tvy, scale

@@ -1,0 +1,533 @@
+"""Spatially sharded engine with explicit ring band exchanges.
+
+Counterpart of `farms_tpu.parallel.halo` on torch.distributed: each rank
+owns a contiguous band of `rows` sensor rows of every surface, and the two
+stencil stages receive exactly the neighbour rows they need -
+
+- the plane fit reads a `support_radius`-deep band of the time surfaces
+  (`exchange_halo`: point-to-point ring hops), and
+- the aperture stage reads a `max_window + 1`-deep band of the flow
+  surfaces' integral image (`assemble_integral_band`: each rank integrates
+  only its own rows and the band carries offset-corrected partials).
+
+Zero bands past the global sensor edge reproduce the reference's window
+clamping exactly (zero fields add nothing to box sums; stamp1 == 0 means
+"never written"), so the kernels' halo modes (ops/kernels.py) need no
+clamps on the x axis.
+
+Every rank is fed the same chronological stream and packs it the same way
+(HaloFlowEngine.pack_halo), so all ranks issue the same collectives in the
+same order; rank 0 returns the FlowOutput. A run of one rank has no
+process group: exchanges zero-pad and the band integral is built locally,
+so every halo mode of every kernel runs on one card.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from farms_tpu_torch.config import FlowConfig
+from farms_tpu_torch.events.io import EventBatch, FlowOutput
+from farms_tpu_torch.ops import kernels
+from farms_tpu_torch.ops.dense_flow import (build_integral, onehot_gather,
+                                            trig_tail)
+from farms_tpu_torch.parallel import mesh
+from farms_tpu_torch.pipeline.engine import (FlowEngine, _coarse,
+                                             _empty_output, _lane_table,
+                                             _merge_lanes, _phasing,
+                                             _scatter, _take, wire_maps,
+                                             wire_n_main_rows, wire_pack)
+from farms_tpu_torch.state.surfaces import SurfaceState, kill_stale_flow
+
+
+def _ring(sends, recvs) -> None:
+    """Post point-to-point sends [(tensor, dst)] and receives
+    [(tensor, src)] as one batch and wait for all of them."""
+    ops = ([dist.P2POp(dist.isend, t, peer) for t, peer in sends]
+           + [dist.P2POp(dist.irecv, t, peer) for t, peer in recvs])
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+
+def exchange_halo(arr: torch.Tensor, h: int, n: int, rank: int,
+                  below: torch.Tensor | None = None) -> torch.Tensor:
+    """Extend a [..., rows, H] shard with h rows from each side of the ring.
+
+    Returns [..., rows + 2h, H]; bands past the global sensor edge are
+    zero above the sensor (rank 0's top) and zero or, if given, `below`
+    ([..., 1, H], broadcast) under it (rank n-1's bottom). Both stencil
+    stages read zero rows as "outside the sensor". A band deeper than a
+    shard (h > rows) comes from several ring hops: hop j fetches the rows
+    needed from the shard j ranks away. Hops that would cross the sensor
+    edge are not sent at all (their rows are the fill), so no send wraps
+    around the ring.
+    """
+    if h == 0:
+        return arr
+    rows = arr.shape[-2]
+
+    def fill(take, value):
+        shape = (*arr.shape[:-2], take, arr.shape[-1])
+        return (arr.new_zeros(shape) if value is None
+                else value.expand(shape).contiguous())
+
+    if n == 1:
+        return torch.cat([fill(h, None), arr, fill(h, below)], -2)
+    hops = -(-h // rows)
+    above, under, sends, recvs = [], [], [], []
+    for j in range(1, hops + 1):
+        take = min(rows, h - (j - 1) * rows)
+        # the bottom `take` rows of shard rank-j sit right above the band
+        # assembled so far, the top `take` rows of rank+j right below it
+        prev, nxt = fill(take, None), fill(take, below)
+        if rank + j < n:
+            sends.append((arr[..., rows - take:, :].contiguous(), rank + j))
+            recvs.append((nxt, rank + j))
+        if rank - j >= 0:
+            sends.append((arr[..., :take, :].contiguous(), rank - j))
+            recvs.append((prev, rank - j))
+        above.insert(0, prev)
+        under.append(nxt)
+    _ring(sends, recvs)
+    return torch.cat(above + [arr] + under, -2)
+
+
+def assemble_integral_band(flow_len, flow_vx, flow_vy, n: int, A: int,
+                           rank: int) -> torch.Tensor:
+    """The float64 global-integral band [4, rows + 2A + 1, Ha + 1] of this
+    shard (JAX: integral partials, farms_tpu/parallel/halo.py:78).
+
+    Box sums are linear, so no rank integrates another's rows:
+    1. each rank builds the float64 prefix integral L of its own rows
+       (dense_flow.build_integral, the whole-sensor engine's own op);
+    2. the per-shard total rows (column sums, [4, Ha + 1]) are gathered
+       from every rank, which gives each shard's offset C_k (the sum of the
+       totals above it) and the sensor's total T;
+    3. global integral rows row0 + 1 .. row0 + rows of this shard are
+       C_k + L[1:]; the band is those rows with A + 1 more from each side
+       of the ring (exchange_halo: 0 above the sensor, T below it, the
+       reference's x clamp), less the last.
+    With one rank the band is L between A zero rows and A copies of T:
+    the whole-sensor integral's values exactly.
+    """
+    L = build_integral(flow_len, flow_vx, flow_vy)     # [4, rows + 1, Ha + 1]
+    if n == 1:
+        own, total = L[:, 1:], L[:, -1:]
+    else:
+        cols = L.shape[2]
+        allcs = L.new_empty((n * 4, cols))
+        dist.all_gather_into_tensor(allcs, L[:, -1].contiguous())
+        allcs = allcs.view(n, 4, cols)
+        offset = torch.zeros_like(allcs[0])
+        for k in range(n):                            # left fold, rank order
+            if k == rank:
+                own = offset[:, None, :] + L[:, 1:]
+            offset = offset + allcs[k]
+        total = offset[:, None, :]
+    # the kernel reads the band as one contiguous float64 array
+    return exchange_halo(own, A + 1, n, rank, below=total)[:, :-1].contiguous()
+
+
+def _own(lanes: torch.Tensor, in_core: torch.Tensor) -> torch.Tensor:
+    """Gathered [F, k] lanes, -0.0 where another shard owns the lane (the
+    gather read a clamped row there): the identity of f32 addition, so a
+    sum over ranks is the owner's value bit for bit, signed zeros
+    included (a +0.0 fill would turn an owner's -0.0 into +0.0)."""
+    return torch.where(in_core, lanes, -0.0)
+
+
+def _local_fit(chain, center, cfg, row0, fold_center=True):
+    """The plane fit of one shard's band (kernel 1 or 2 in halo mode) and
+    its trig tail: (vx, vy, gate, length) maps of the core rows."""
+    acc, a, b, dtdp, _ = kernels.local_flow(
+        chain, center, cfg, fold_center=fold_center,
+        halo=cfg.support_radius, row_offset=row0)
+    vx, vy, gate, length, _ = trig_tail(acc, a, b, dtdp)
+    return vx, vy, gate, length
+
+
+def _corr_assemble(cfg: FlowConfig, chain_ext, t_c2, loc_maps, ap_tables,
+                   rows, row0, lx, ys, in_core, cflag, grp):
+    """Sharded rank-2 correction pass + merged-table lane assembly.
+
+    The shard-local form of micro_step's correction (JAX:
+    farms_tpu/parallel/halo.py:146): the extra plane fit runs in halo and
+    correction mode on the chunk's exchanged chain (pass 1's bands, no new
+    collective) against this shard's rows of the host-built center
+    surface, and every lane reads its plane-fit rows from its phase's
+    table, or the correction table where flagged, and its true-flow rows
+    from its aperture pass's table. Off-shard lanes read a clamped row and
+    are zeroed. Returns the [5, m] f32 lane stack.
+    """
+    R = cfg.support_radius
+    Ha = cfg.array_height
+    vx2, vy2, gate2, _ = _local_fit(torch.stack(chain_ext),
+                                    F.pad(t_c2, (0, 0, R, R)), cfg, row0,
+                                    fold_center=False)
+    loc_all = loc_maps + [_lane_table(vx2, vy2, gate2, cfg, packed=False)]
+    RH = rows * Ha
+    pix = lx.clamp(0, rows - 1).to(torch.int64) * Ha + ys.to(torch.int64)
+    table = torch.where(cflag, len(loc_all) - 1, grp)
+    loc = _own(_take(loc_all, table * RH + pix), in_core)
+    m = lx.shape[0]
+    lane = torch.arange(m, device=lx.device)
+    tf = _own(_take(ap_tables, lane // (m // len(ap_tables)) * RH + pix),
+              in_core)
+    return _merge_lanes(loc, tf, cfg, packed=False)
+
+
+def _step(state: SurfaceState, batch: torch.Tensor, cfg: FlowConfig,
+          n: int, rank: int, t_c2=None, bs: int = 0):
+    """One micro-step of one shard (JAX: halo_micro_step :374 with bs = 0,
+    halo_micro_step_sharded :201 with bs > 0).
+
+    `batch` is the int32 5-row layout (x, y, t, lane_valid, winner) of
+    HaloFlowEngine.pack_halo, [6, ...] with the corrected-lane flags when
+    `t_c2` (this shard's rows of the rank-2 center surface) is given:
+    - bs = 0, replicated: every rank gets all m lanes; outputs are summed
+      over ranks (each lane has one non-zero contribution, its owner's);
+    - bs > 0, owner-sharded: this rank's own P*S sub-group segments of bs
+      lanes plus a P-lane tail whose stamp row holds the global phase start
+      stamps for the staleness kill; no sum, the lanes stay on their rank.
+    Returns the new state and the wire pair (int32 [C, k], uint8 [k]).
+    """
+    rows = cfg.array_width // n
+    Ha = cfg.array_height
+    row0 = rank * rows
+    R = cfg.support_radius
+    A = cfg.max_window + 1
+    x, y, t = batch[0], batch[1], batch[2]
+    is_winner = batch[4] != 0
+    corr = t_c2 is not None
+    if bs:
+        P, S = cfg.sub_phases, cfg.causal_snapshots
+        links = (S - 1,) if cfg.correction_coarse_chain else tuple(range(S))
+        mp = ms = None
+        head = P * S * bs
+        t0s = t[head:]
+    else:
+        head = x.shape[0]
+        P, S, links = _phasing(head, cfg)
+        mp = head // P
+        ms = mp // S
+        t0s = t[::mp][:P]
+    coarse = _coarse(cfg, P)
+    seg = S * bs if bs else mp          # lanes of one phase
+    sub = bs if bs else ms              # lanes of one scatter sub-group
+
+    t_surf, epoch = state.t_surf, state.epoch
+    flow_len, flow_vx, flow_vy = state.flow_len, state.flow_vx, state.flow_vy
+    lx = x - row0
+    in_core = (lx >= 0) & (lx < rows)
+    # local flat pixel per lane; non-winners and lanes of other shards go
+    # to the spare cell rows*Ha of the scatter buffers
+    pix = lx.to(torch.int64) * Ha + y.to(torch.int64)
+    wpix = torch.where(is_winner & in_core, pix, rows * Ha)
+    t1 = t + 1
+    safe_lx = lx.clamp(0, rows - 1)
+
+    # ---- pass 1: scatters and every time-surface band exchange, before
+    # any stencil compute (the JAX package's order, which lets XLA overlap
+    # phase p+1's exchange with phase p's compute). A phase's pre-scatter
+    # band is the previous phase's post band: one exchange per sub-group.
+    phases = []
+    pre_ext = exchange_halo(t_surf, R, n, rank)
+    chain_ext = [pre_ext] if corr else None
+    for p in range(P):
+        ep_val = state.step * P + p
+        mids = []
+        for si in range(S):
+            ssl = slice(p * seg + si * sub, p * seg + (si + 1) * sub)
+            t_surf = _scatter(t_surf, wpix[ssl], t1[ssl])
+            epoch = _scatter(epoch, wpix[ssl], ep_val)
+            if si < S - 1:
+                mids.append(exchange_halo(t_surf, R, n, rank))
+                if corr and si in links:
+                    chain_ext.append(mids[-1])
+        post_ext = exchange_halo(t_surf, R, n, rank)
+        if corr:                        # the last sub-group always links
+            chain_ext.append(post_ext)
+        phases.append((epoch == ep_val, pre_ext, mids, post_ext))
+        pre_ext = post_ext
+
+    # ---- pass 2: stencil compute per phase ----
+    loc_maps, ap_tables, pending, lanes_out = [], [], [], []
+    for p, (written, pre_ext, mids, post_ext) in enumerate(phases):
+        lsl = slice(p * seg, (p + 1) * seg)
+        # staleness kill at aperture-group cadence, against the phase's
+        # pre-scatter surface: the core rows of its pre band
+        if not coarse or p % (P // coarse) == 0:
+            flow_len = kill_stale_flow(flow_len, pre_ext[R:R + rows], t0s[p],
+                                       cfg)
+        vx_map, vy_map, gate_map, len_map = _local_fit(
+            torch.stack([pre_ext, *mids]), post_ext, cfg, row0)
+        flow_len = torch.where(
+            written, torch.where(gate_map, len_map, 0.0), flow_len)
+        flow_vx = torch.where(
+            written, torch.where(gate_map, vx_map, 0.0), flow_vx)
+        flow_vy = torch.where(
+            written, torch.where(gate_map, vy_map, 0.0), flow_vy)
+        loc = _lane_table(vx_map, vy_map, gate_map, cfg, packed=False)
+        if corr:
+            # every lane is assembled after the correction pass
+            loc_maps.append(loc)
+        elif coarse:
+            # this group's plane-fit lanes wait for their pooling pass
+            pending.append((lsl, _own(onehot_gather(
+                loc, safe_lx[lsl], y[lsl], rows, Ha), in_core[lsl])))
+        if coarse and (p + 1) % (P // coarse):
+            continue
+        integ = assemble_integral_band(flow_len, flow_vx, flow_vy, n, A,
+                                       rank)
+        tvx_map, tvy_map, scale_map = kernels.aperture(
+            flow_len, flow_vx, flow_vy, cfg, halo=A, integ=integ)
+        if corr:
+            ap_tables.append(_lane_table(tvx_map, tvy_map, scale_map, cfg,
+                                         packed=False))
+        elif coarse:
+            amaps = _lane_table(tvx_map, tvy_map, scale_map, cfg,
+                                packed=False)
+            for gsl, gloc in pending:
+                tf = _own(onehot_gather(amaps, safe_lx[gsl], y[gsl], rows,
+                                        Ha), in_core[gsl])
+                lanes_out.append(_merge_lanes(gloc, tf, cfg, packed=False))
+            pending = []
+        else:
+            # packed=False: these lanes are summed across ranks below, and
+            # f32 arithmetic on packed f16-pair words is not bit-preserving
+            maps = wire_maps(gate_map, vx_map, vy_map, tvx_map, tvy_map,
+                             scale_map, cfg, packed=False)
+            lanes_out.append(_own(onehot_gather(
+                maps, safe_lx[lsl], y[lsl], rows, Ha), in_core[lsl]))
+
+    if corr:
+        lane = torch.arange(head, device=x.device)
+        lanes = _corr_assemble(cfg, chain_ext, t_c2, loc_maps, ap_tables,
+                               rows, row0, lx[:head], y[:head],
+                               in_core[:head], batch[5, :head] != 0,
+                               lane // seg)
+    else:
+        lanes = torch.cat(lanes_out, 1)
+    if not bs and n > 1:
+        # one non-zero (NaN-scrubbed) contribution per lane: the sum is
+        # exact. A reduce-scatter leaves each rank its 1/n of the lanes;
+        # where n does not divide m every rank sums them all.
+        if head % n == 0:
+            part = lanes.new_empty((head // n, 5))
+            dist.reduce_scatter_tensor(part, lanes.t().contiguous())
+            lanes = part.t()
+        else:
+            dist.all_reduce(lanes)
+    out = wire_pack(lanes[0], lanes[1], lanes[2], lanes[3], lanes[4], cfg)
+    return SurfaceState(t_surf, epoch, flow_len, flow_vx, flow_vy,
+                        state.step + 1), out
+
+
+class HaloFlowEngine(FlowEngine):
+    """FlowEngine sharded over the ranks of a torch.distributed group.
+
+    Construct it in every rank of the group (parallel/mesh.py `run`), or in
+    a process without a group for one rank. Each rank keeps its [rows, Ha]
+    band of every surface on `device` (its own card under NCCL).
+    """
+
+    def __init__(self, cfg: FlowConfig, device="cuda"):
+        if not cfg.use_dense:
+            raise ValueError("halo sharding requires the dense compute path")
+        if cfg.aperture_sub_phases > cfg.sub_phases:
+            raise ValueError(
+                "the halo engine supports aperture_sub_phases equal to or a "
+                "divisor of sub_phases (coarse pooling); finer aperture "
+                "phasing is a FlowEngine feature")
+        rank, world_size = mesh.rank_and_size()
+        self.rank, self.n_shards = rank, world_size
+        # the base checks (require_slice, kernel build) see the semantic
+        # geometry; the shards hold the padded one: non-divisible widths
+        # pad up, and the pad rows are never written
+        super().__init__(cfg, device)
+        self.cfg = cfg.padded_to(world_size)
+        n = world_size
+        blk = cfg.chunk_size // (cfg.sub_phases * cfg.causal_snapshots)
+        # owner-sharded sub-group segments: 2x slack plus a small constant
+        # (binomial fluctuation dominates tiny sub-groups)
+        self._bs = min(blk, 2 * -(-blk // n) + 4) if n > 1 else blk
+        self.reset()
+
+    def reset(self):
+        super().reset()
+        cfg = self.cfg
+        shape = (cfg.array_width // self.n_shards, cfg.array_height)
+        dev = self.device
+        self.state = SurfaceState(
+            t_surf=torch.zeros(shape, dtype=torch.int32, device=dev),
+            epoch=torch.full(shape, -1, dtype=torch.int32, device=dev),
+            flow_len=torch.zeros(shape, dtype=torch.float32, device=dev),
+            flow_vx=torch.zeros(shape, dtype=torch.float32, device=dev),
+            flow_vy=torch.zeros(shape, dtype=torch.float32, device=dev),
+            step=0)
+
+    # ---- host-side packing -------------------------------------------------
+    def pack_halo(self, ev: EventBatch, steps_per_call: int | None = None):
+        """The 5-row layout and its owner-shard reorder (JAX:
+        HaloFlowEngine.pack, farms_tpu/parallel/halo.py:738).
+
+        Returns (packed, n, perm, centers). packed is int32 [n_calls, spc,
+        rows, m] of (x, y, t, lane_valid, winner) lanes, derived from the
+        compact pack (padded lanes x = y = 0, invalid, never winners), plus
+        the corrected-lane flag row under correction; centers is then the
+        int32 [n_calls, spc, array W, array H] rank-2 center surfaces
+        (pack_r2), else None. With more than one rank, each scatter
+        sub-group's lanes are reordered by owning row shard into bs-lane
+        segments with 2x slack: packed becomes [n_calls, spc, n, rows,
+        G*bs + P], a P-lane tail of global phase start stamps in the stamp
+        row, and perm [n_calls, spc, n, G*bs] the source lane of each
+        segment lane (-1 for padding). A sub-group that overflows its slack
+        gives the replicated layout for the whole stream (perm None).
+        """
+        cfg = self.cfg
+        spc = steps_per_call or cfg.steps_per_scan
+        compact, nn = self.pack(ev, steps_per_call=spc)
+        word = compact[:, :, 0, :]
+        flat = word & 0x3FFFFFFF
+        valid = flat < cfg.width * cfg.height
+        rows_5 = [np.where(valid, flat // cfg.height, 0),
+                  np.where(valid, flat % cfg.height, 0),
+                  compact[:, :, 1, :], valid, (word >> 30) & 1]
+        centers = None
+        if cfg.center_correction:
+            fl, ctr = self.pack_r2(ev, steps_per_call=spc)
+            rows_5.append(fl)
+            centers = np.pad(ctr, ((0, 0), (0, 0),
+                                   (0, cfg.array_width - cfg.width),
+                                   (0, cfg.array_height - cfg.height)))
+        packed = np.stack(rows_5, axis=2).astype(np.int32)
+        n = self.n_shards
+        if n == 1:
+            return packed, nn, None, centers
+        n_calls, spc, n_rows, m = packed.shape
+        G = cfg.sub_phases * cfg.causal_snapshots
+        blk = m // G
+        bs = self._bs
+        mp = m // cfg.sub_phases
+        rows = cfg.array_width // n
+        owner = np.minimum(packed[:, :, 0, :] // rows, n - 1)
+        # padded lanes sit at x = 0 and would all pile onto shard 0; they
+        # never scatter and their outputs are discarded, so spread them
+        # round-robin instead
+        pad = packed[:, :, 3, :] == 0
+        owner = np.where(pad, np.arange(m, dtype=np.int64) % n, owner)
+        msh = G * bs + cfg.sub_phases
+        shard_pack = np.zeros((n_calls, spc, n, n_rows, msh), np.int32)
+        shard_pack[:, :, :, 2, G * bs:] = (
+            packed[:, :, 2, ::mp][:, :, None, :cfg.sub_phases])
+        perm = np.full((n_calls, spc, n, G * bs), -1, np.int64)
+        for c in range(n_calls):
+            for s in range(spc):
+                for g in range(G):
+                    lanes = np.arange(g * blk, (g + 1) * blk)
+                    ow = owner[c, s, lanes]
+                    for k in range(n):
+                        src = lanes[ow == k]
+                        if src.size > bs:
+                            return packed, nn, None, centers
+                        dst = np.arange(g * bs, g * bs + src.size)
+                        shard_pack[c, s, k][:, dst] = packed[c, s][:, src]
+                        perm[c, s, k, dst] = src
+        return shard_pack, nn, perm, centers
+
+    # ---- processing --------------------------------------------------------
+    def process(self, ev: EventBatch,
+                steps_per_call: int | None = None) -> FlowOutput | None:
+        """Process an event stream (or a continuation of one) on every rank.
+
+        Every rank must be given the same stream. Each uploads only its
+        own lanes on the owner-sharded layout (all lanes on the replicated
+        one) and its rows of the center surfaces; rank 0 gathers the wire
+        outputs and returns the FlowOutput, the other ranks None.
+        """
+        if len(ev) == 0:
+            return _empty_output() if self.rank == 0 else None
+        cfg = self.cfg
+        n, rank = self.n_shards, self.rank
+        packed, nn, perm, centers = self.pack_halo(ev, steps_per_call)
+        sharded = perm is not None
+        if n > 1:
+            # the layout is chosen from the stream alone; ranks that chose
+            # differently would issue different collectives
+            votes = torch.tensor([int(sharded)], device=self.device)
+            dist.all_reduce(votes)
+            if int(votes) not in (0, n):
+                raise RuntimeError(f"ranks disagree on the batch layout "
+                                   f"({int(votes)} of {n} owner-sharded)")
+        rows = cfg.array_width // n
+        bs = self._bs if sharded else 0
+        blocks = []
+        for c in range(packed.shape[0]):
+            chunk = packed[c][:, rank] if sharded else packed[c]
+            chunk = torch.from_numpy(np.ascontiguousarray(chunk)).to(
+                self.device)
+            # each call's center surfaces travel with its own batch
+            t_c2 = (None if centers is None else torch.from_numpy(
+                np.ascontiguousarray(
+                    centers[c][:, rank * rows:(rank + 1) * rows])).to(
+                        self.device))
+            mains, auxs = [], []
+            for i in range(chunk.shape[0]):
+                self.state, (main, aux) = _step(
+                    self.state, chunk[i], cfg, n, rank,
+                    None if t_c2 is None else t_c2[i], bs)
+                mains.append(main)
+                auxs.append(aux)
+            blocks.append(self._gather(torch.stack(mains),
+                                       torch.stack(auxs), sharded))
+        if rank:
+            return None
+        return self._unpack(blocks, ev, nn, perm)
+
+    def _gather(self, main: torch.Tensor, aux: torch.Tensor, sharded: bool):
+        """One call's wire block on rank 0 (host arrays), None elsewhere.
+
+        Each rank holds its lanes of every step: its reduce-scatter slice
+        or its owner-sharded segments, in rank order along the lane axis;
+        after an all-reduce (n does not divide m) every rank holds all."""
+        n = self.n_shards
+        if n == 1 or (not sharded and self.cfg.chunk_size % n):
+            if self.rank:
+                return None
+            return main.cpu().numpy(), aux.cpu().numpy()
+        block = torch.cat([main, aux.to(torch.int32)[:, None]], 1)
+        parts = ([torch.empty_like(block) for _ in range(n)]
+                 if self.rank == 0 else None)
+        dist.gather(block, parts, dst=0)
+        if self.rank:
+            return None
+        block = torch.cat(parts, 2).cpu().numpy()
+        return block[:, :-1], block[:, -1].astype(np.uint8)
+
+    def _unpack(self, blocks, ev: EventBatch, nn: int, perm) -> FlowOutput:
+        """Stream-order wire blocks from the gathered ones (JAX:
+        HaloFlowEngine._unpack_outputs), then the base decode."""
+        if perm is None:
+            return self._unpack_outputs(blocks, ev, nn)
+        C = wire_n_main_rows(self.cfg)
+        m = self.cfg.chunk_size
+        n = self.n_shards
+        gbs = perm.shape[3]
+        out = []
+        for c, (mo, ao) in enumerate(blocks):
+            spc = mo.shape[0]
+            mo = mo.reshape(spc, C, n, gbs)
+            ao = ao.reshape(spc, n, gbs)
+            gm = np.zeros((spc, C, m), mo.dtype)
+            ga = np.zeros((spc, m), ao.dtype)
+            for s in range(spc):
+                for k in range(n):
+                    v = perm[c, s, k] >= 0
+                    gm[s][:, perm[c, s, k, v]] = mo[s][:, k, v]
+                    ga[s][perm[c, s, k, v]] = ao[s, k, v]
+            out.append((gm, ga))
+        return self._unpack_outputs(out, ev, nn)
+

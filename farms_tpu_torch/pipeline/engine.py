@@ -82,16 +82,20 @@ def wire_pack(vx, vy, tvx_g, tvy_g, aux_f, cfg: FlowConfig):
 
 
 def wire_maps(gate_map, vx_map, vy_map, tvx_map, tvy_map, scale_map,
-              cfg: FlowConfig):
+              cfg: FlowConfig, packed: bool | None = None):
     """Stack the dense per-pixel maps the wire needs.
 
-    f32 wire: [5, W, H] f32 - vx, vy, gated true_vx, gated true_vy, aux
-    byte value. f16 wire: [3, W, H] - the two f16 component pairs packed
-    into int32 at map level (viewed as f32 so one gather moves all rows)
-    and the aux row; the same wire bytes as packing after the gather.
-    Non-finite values are scrubbed (they arise only with
-    min_evts_on_plane <= 0).
+    f32 wire, or `packed=False`: [5, W, H] f32 - vx, vy, gated true_vx,
+    gated true_vy, aux byte value. f16 wire (`packed` by default): [3, W,
+    H] - the two f16 component pairs packed into int32 at map level
+    (viewed as f32 so one gather moves all rows) and the aux row; the same
+    wire bytes as packing after the gather. Callers that sum lanes across
+    ranks (parallel/halo.py) pass packed=False: f32 arithmetic on packed
+    f16-pair bit patterns is not bit-preserving. Non-finite values are
+    scrubbed (they arise only with min_evts_on_plane <= 0).
     """
+    if packed is None:
+        packed = cfg.wire != "f32"
     aux_f = torch.where(gate_map, 128 + scale_map // cfg.window_jump,
                         0).to(torch.float32)
 
@@ -100,7 +104,7 @@ def wire_maps(gate_map, vx_map, vy_map, tvx_map, tvy_map, scale_map,
 
     tvx_g = torch.where(gate_map, tvx_map, 0.0)
     tvy_g = torch.where(gate_map, tvy_map, 0.0)
-    if cfg.wire != "f32":
+    if packed:
         p0 = _f16_pair(sc(vx_map), sc(vy_map)).view(torch.float32)
         p1 = _f16_pair(sc(tvx_g), sc(tvy_g)).view(torch.float32)
         return torch.stack([p0, p1, aux_f], 0)
@@ -164,26 +168,34 @@ def _scrub(a: torch.Tensor) -> torch.Tensor:
     return torch.nan_to_num(a, nan=0.0, posinf=0.0, neginf=0.0)
 
 
-def _lane_table(a, b, last, cfg: FlowConfig) -> torch.Tensor:
+def _lane_table(a, b, last, cfg: FlowConfig,
+                packed: bool | None = None) -> torch.Tensor:
     """A [F, W, H] table of per-pixel wire rows: the component maps a, b
     (scrubbed) as one f16 pair (f32 bits) on the f16 wire, or as two f32
-    rows, then `last` as f32. The plane fit's table is (vx, vy, gate), the
-    aperture's (true_vx, true_vy, scale), ungated."""
+    rows (f32 wire, or packed=False), then `last` as f32. The plane fit's
+    table is (vx, vy, gate), the aperture's (true_vx, true_vy, scale),
+    ungated."""
+    if packed is None:
+        packed = cfg.wire != "f32"
     last = last.to(torch.float32)
-    if cfg.wire != "f32":
+    if packed:
         pair = _f16_pair(_scrub(a), _scrub(b)).view(torch.float32)
         return torch.stack([pair, last])
     return torch.stack([_scrub(a), _scrub(b), last])
 
 
-def _merge_lanes(loc: torch.Tensor, tf: torch.Tensor, cfg: FlowConfig):
+def _merge_lanes(loc: torch.Tensor, tf: torch.Tensor, cfg: FlowConfig,
+                 packed: bool | None = None):
     """Wire lanes from gathered plane-fit rows `loc` and aperture rows
-    `tf`: the true flow and the aux byte (128 + scale id) are gated by the
-    plane fit's validity. A zero f32 pattern is the f16 pair (0, 0), so the
-    gating is bit-exact on either wire."""
+    `tf` (_lane_table rows, `packed` alike): the true flow and the aux
+    byte (128 + scale id) are gated by the plane fit's validity. A zero f32
+    pattern is the f16 pair (0, 0), so the gating is bit-exact on either
+    wire."""
+    if packed is None:
+        packed = cfg.wire != "f32"
     gate = loc[-1] != 0
     aux_f = torch.where(gate, 128 + tf[-1] // cfg.window_jump, 0.0)
-    if cfg.wire != "f32":
+    if packed:
         return torch.stack([loc[0], torch.where(gate, tf[0], 0.0), aux_f])
     return torch.stack([loc[0], loc[1], torch.where(gate, tf[0], 0.0),
                         torch.where(gate, tf[1], 0.0), aux_f])
@@ -209,6 +221,13 @@ def _phasing(m: int, cfg: FlowConfig) -> tuple[int, int, tuple]:
     S = cfg.causal_snapshots if (m // P) % cfg.causal_snapshots == 0 else 1
     links = (S - 1,) if cfg.correction_coarse_chain else tuple(range(S))
     return P, S, links
+
+
+def _coarse(cfg: FlowConfig, P: int) -> int:
+    """Aperture groups of a P-phase micro-step under coarse pooling (A < P
+    aperture phases dividing P), else 0."""
+    A = cfg.aperture_sub_phases
+    return A if A and A < P and P % A == 0 else 0
 
 
 def chain_lengths(cfg: FlowConfig) -> tuple[int, int]:
@@ -260,7 +279,7 @@ def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig):
     ms = mp // S
     corr = cfg.center_correction > 0 and r2f is not None and r2c is not None
     A = cfg.aperture_sub_phases
-    coarse = A if A and A < P and P % A == 0 else 0
+    coarse = _coarse(cfg, P)
     # fine aperture groups per phase; a count that does not divide the
     # phase would drop its trailing lanes, and correction forbids it
     k = max(1, A // P) if A else 1

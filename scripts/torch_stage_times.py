@@ -13,6 +13,14 @@ over the median wall time of the unprofiled micro-steps. Needs a CUDA
 device:
 
     python scripts/torch_stage_times.py [--preset fidelity] [--filtersize 7]
+
+With `--halo-ranks N` it times the halo engine (parallel/halo.py) instead,
+on N ranks with one card each (NCCL; N = 1 runs in this process): the wall
+seconds of each of 4 `process` runs on the same stream, the first being
+the ranks' first, and of the engine's host packing (`pack_halo`) alone,
+as rank 0 sees them. Needs N cards:
+
+    python scripts/torch_stage_times.py --halo-ranks 2
 """
 from __future__ import annotations
 
@@ -32,6 +40,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from farms_tpu_torch.cli import _PRESETS  # noqa: E402
 from farms_tpu_torch.config import FlowConfig  # noqa: E402
 from farms_tpu_torch.events.io import synthetic_random_events  # noqa: E402
+from farms_tpu_torch.ops import _build  # noqa: E402
+from farms_tpu_torch.parallel import mesh  # noqa: E402
+from farms_tpu_torch.parallel.halo import HaloFlowEngine  # noqa: E402
 from farms_tpu_torch.pipeline.engine import FlowEngine, scan_chunk  # noqa: E402
 
 
@@ -88,11 +99,39 @@ def _stages(eng: FlowEngine, ev, dev, profile: bool):
     return t, busy_us * 1e-6, out
 
 
+def _halo_runs(cfg, ev, reps: int, device: str = "cuda"):
+    """A rank's wall seconds of reps HaloFlowEngine.process runs, each of
+    a new engine and started together on every rank, then of pack_halo
+    alone (a mesh.run entry point; a rank's "cuda" is its own card)."""
+    dev = torch.device(device)
+    _, n = mesh.rank_and_size()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    runs = []
+    for _ in range(reps):
+        eng = HaloFlowEngine(cfg, device=dev)
+        sync()
+        if n > 1:
+            torch.distributed.barrier()
+        t0 = time.perf_counter()
+        eng.process(ev)
+        sync()
+        runs.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    HaloFlowEngine(cfg, device=dev).pack_halo(ev)
+    return runs, time.perf_counter() - t0
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--preset", default="benchmark",
                    choices=["benchmark", "fidelity"])
     p.add_argument("--filtersize", type=int, default=3)
+    p.add_argument("--halo-ranks", type=int, default=0,
+                   help="time the halo engine on this many ranks instead")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -107,6 +146,21 @@ def main() -> int:
     n = 1 << 20
     ev = synthetic_random_events(n, width=320, height=320, rate_hz=5e6,
                                  seed=0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    if args.halo_ranks:
+        _build.build()          # once, before the ranks start
+        runs, pack_s = mesh.run(_halo_runs, args.halo_ranks, "cuda", cfg,
+                                ev, 4)
+        warm = float(np.median(runs[1:]))
+        print(json.dumps({
+            "card": smi, "preset": args.preset, "filter_size": cfg.filter_size,
+            "events": n, "halo_ranks": max(1, args.halo_ranks),
+            "process_s": runs, "first_s": runs[0], "warm_median_s": warm,
+            "events_per_s_warm": n / warm, "pack_halo_s": pack_s,
+        }))
+        return 0
     FlowEngine(cfg, device=dev).process(ev[:cfg.chunk_size])   # warm-up
     reps = []
     for profile in (False, False, False, True):
@@ -116,9 +170,6 @@ def main() -> int:
             reps.append(t)
     med = {k: float(np.median([r[k] for r in reps])) for k in reps[0]}
     total = sum(med.values())
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
     print(json.dumps({
         "card": smi, "preset": args.preset, "filter_size": cfg.filter_size,
         "events": n, "seconds": med, "total_s": total,

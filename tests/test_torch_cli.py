@@ -102,14 +102,32 @@ def test_fidelity_modes_run(tmp_path, capsys, flags):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--SERIAL", "1"], ["--engine", "halo"], ["--devices", "2"],
+    ["--SERIAL", "1"], ["--engine", "dp"], ["--devices", "2"],
     ["--backend", "perevent"], ["--multihost"], ["--wire", "sparse"],
+    ["--engine", "spatial"], ["--engine", "multihost"],
 ])
 def test_unported_modes_raise(tmp_path, flags):
     _, base = _events_file(tmp_path, "x", n=10)
     with pytest.raises(NotImplementedError):
         tcli.main(["--filename", base, "--width", "64", "--height", "64",
                    "--device", "cpu", "--chunk-size", "64", *flags])
+
+
+def test_halo_engine_ranks_write_the_same_file(tmp_path, capfd):
+    """--engine halo on 2 gloo ranks writes the file one rank writes, which
+    is the single engine's; rank 0 alone prints."""
+    ev, base = _events_file(tmp_path, "halo", n=700)
+    point = [*_POINT, "--device", "cpu", "--steps-per-scan", "1"]
+    outputs = {}
+    for engine in (["--engine", "single"], ["--engine", "halo"],
+                   ["--engine", "halo", "--devices", "2"]):
+        assert tcli.main(["--filename", base, *point, *engine]) == 0
+        with open(base + "_FARMSOut_batch.txt") as f:
+            outputs[" ".join(engine)] = f.read()
+        assert capfd.readouterr().out.count("[Benchmark Main]") == 1
+    single, one, two = outputs.values()
+    assert one == single and two == single
+    assert (read_flow_txt(base + "_FARMSOut_batch.txt").r_local > 0).sum() > 100
 
 
 def test_cuda_requested_without_cuda_raises(tmp_path, monkeypatch):

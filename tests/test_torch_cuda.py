@@ -144,6 +144,107 @@ def test_cuda_aperture_kernel_matches_plain(cuda, geom, quirk):
         assert torch.equal(g, w), name
 
 
+def _band(arr, n, i, h):
+    """Rows of shard i of n with h rows from each side, zero past the
+    sensor edge (the band exchange_halo gives)."""
+    rows = arr.shape[-2] // n
+    pad = [(0, 0)] * (arr.ndim - 2) + [(h, h), (0, 0)]
+    return np.ascontiguousarray(
+        np.pad(arr, pad)[..., i * rows:i * rows + rows + 2 * h, :])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, n_chain, fold_center", [
+    (3, 1, True), (5, 8, True), (3, 3, False), (7, 1, True)])
+def test_cuda_halo_local_flow_matches_plain(cuda, k, n_chain, fold_center):
+    """Halo mode on 1, 2 and 4 bands (320, 160 and 80 rows: the shards of
+    1, 2 and 4 ranks): bitwise equal to the plain halo mode and to the
+    whole-sensor kernel's rows."""
+    cfg = TConfig(width=320, height=320, filter_size=k)
+    R = cfg.support_radius
+    chain, center = _chain(320, 320, seed=20 + k, n=n_chain)
+    if fold_center:
+        center = np.where(np.arange(320)[:, None] % 3 == 0,
+                          chain[-1].view(np.uint32) + np.uint32(700),
+                          chain[-1].view(np.uint32)).view(np.int32)
+    whole = tk.local_flow(torch.from_numpy(chain).to(cuda),
+                          torch.from_numpy(center).to(cuda), cfg,
+                          fold_center=fold_center)
+    name = "local_flow" if k in (3, 5) else "local_flow_general"
+    for n in (1, 2, 4):
+        rows = 320 // n
+        for i in range(n):
+            ch = torch.from_numpy(_band(chain, n, i, R)).to(cuda)
+            ce = torch.from_numpy(_band(center, n, i, R)).to(cuda)
+            tk.reset_launches()
+            got = tk.local_flow(ch, ce, cfg, fold_center=fold_center,
+                                halo=R, row_offset=rows * i)
+            assert tk.LAUNCHES[name] == 1 and sum(tk.LAUNCHES.values()) == 1
+            want = tdf.local_flow_core(ch, ce, cfg, fold_center=fold_center,
+                                       halo=R, row_offset=rows * i)
+            for label, g, w, o in zip(["accept", "a", "b", "dtdp", "cand"],
+                                      got, want, whole):
+                assert torch.equal(g, w), (n, i, label)
+                assert torch.equal(g, o[rows * i:rows * (i + 1)]), (
+                    n, i, label)
+
+
+@pytest.mark.cuda
+def test_cuda_aperture_band_matches_plain(cuda):
+    """Band mode on 1, 2 and 4 bands (320, 160 and 80 rows), each sliced
+    from the whole float64 integral (0 above the sensor, its total row
+    below): bitwise equal to the plain band mode and to the whole-sensor
+    kernel's rows."""
+    cfg = TConfig(width=320, height=320)
+    A = cfg.max_window + 1
+    ins = [torch.from_numpy(a).to(cuda) for a in _flow_fields(320, 320, 5)]
+    whole = tk.aperture(*ins, cfg)
+    integ = tdf.build_integral(*ins)
+    full = torch.cat([torch.zeros_like(integ[:, :A]), integ,
+                      integ[:, -1:].expand(-1, A, -1)], 1)
+    for n in (1, 2, 4):
+        rows = 320 // n
+        for i in range(n):
+            band = full[:, rows * i:rows * (i + 1) + 2 * A + 1].contiguous()
+            core = [a[rows * i:rows * (i + 1)] for a in ins]
+            tk.reset_launches()
+            got = tk.aperture(*core, cfg, halo=A, integ=band)
+            assert tk.LAUNCHES["aperture"] == 1
+            want = tdf.dense_aperture(*core, cfg, halo=A, integ=band)
+            for name, g, w, o in zip(["tvx", "tvy", "scale"], got, want,
+                                     whole):
+                assert torch.equal(g, w), (n, i, name)
+                assert torch.equal(g, o[rows * i:rows * (i + 1)]), (
+                    n, i, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("correction", [0, 32])
+def test_cuda_one_rank_halo_engine_equals_single_engine(cuda, correction):
+    """The halo engine on one card (no process group) runs every halo mode
+    of every kernel and gives the single engine's outputs bitwise."""
+    from farms_tpu_torch.events.io import synthetic_translating_bar
+    from farms_tpu_torch.parallel.halo import HaloFlowEngine
+    from farms_tpu_torch.pipeline.engine import FlowEngine
+
+    cfg = TConfig(width=64, height=48, chunk_size=128, steps_per_scan=2,
+                  max_window=10, window_jump=5, sub_phases=4,
+                  aperture_sub_phases=2, causal_snapshots=2,
+                  center_correction=correction, wire="f16")
+    ev = synthetic_translating_bar(width=64, height=48, bar_len=16,
+                                   duration_us=15000, jitter_us=10, seed=4)
+    ev.y[:] = np.clip(ev.y, 0, 47)
+    ref = FlowEngine(cfg, device=cuda).process(ev)
+    tk.reset_launches()
+    got = HaloFlowEngine(cfg, device=cuda).process(ev)
+    assert tk.LAUNCHES["local_flow"] > 0 and tk.LAUNCHES["aperture"] > 0
+    assert (ref.r_local > 0).sum() > 40
+    for col in ("vx", "vy", "r_local", "theta_local", "r_true", "theta_true",
+                "scale"):
+        np.testing.assert_array_equal(getattr(got, col), getattr(ref, col),
+                                      err_msg=col)
+
+
 @pytest.mark.cuda
 def test_cuda_wrapper_rejects_bad_input(cuda):
     cfg = TConfig(width=32, height=32)

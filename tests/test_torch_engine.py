@@ -16,10 +16,10 @@ import torch
 
 from farms_tpu_torch.config import FlowConfig as TConfig
 from farms_tpu_torch.events import io as tio
-from farms_tpu_torch.ops import dense_flow as tdf
 from farms_tpu_torch.pipeline import checkpoint as tckpt
 from farms_tpu_torch.pipeline import engine as teng
 from farms_tpu_torch.pipeline.oracle import run_oracle
+from farms_tpu_torch.pipeline.ties import scale_ties
 
 torch.set_num_threads(1)
 
@@ -141,69 +141,12 @@ def _process_recording_aperture(eng, ev, monkeypatch):
     return out, passes
 
 
-def _scale_means_f64(flow_len, x, y, cfg):
-    """Mean flow length of each scale's window around pixels (x, y):
-    float64 box sums of the port's integral image, [n_scales, n]."""
-    integ = tdf.build_integral(flow_len, flow_len, flow_len).numpy()
-    yc = tdf.aperture_y_clip(cfg)
-    x = x.astype(np.int64)
-    y = y.astype(np.int64)
-    means = []
-    for s in cfg.scales:
-        xh, xl = np.minimum(x + s + 1, cfg.width), np.maximum(x - s, 0)
-        yh, yl = np.clip(y + s + 1, 0, yc), np.clip(y - s, 0, yc)
-        box = (integ[:2, xh, yh] - integ[:2, xl, yh]
-               - integ[:2, xh, yl] + integ[:2, xl, yl])
-        means.append(np.where(box[0] > 0.5,
-                              box[1] / np.maximum(box[0], 1.0), 0.0))
-    return np.stack(means)
-
-
-def _aperture_passes(cfg):
-    """Aperture passes per micro-step: A for coarse pooling (A < P, a
-    divisor of P), P * A / P for fine pooling (A > P; one per phase under
-    correction or where A / P does not divide the phase), else P."""
-    P, A = cfg.sub_phases, cfg.aperture_sub_phases
-    if A and A < P and P % A == 0:
-        return A
-    k = max(1, A // P) if A else 1
-    if (cfg.chunk_size // P) % k or cfg.center_correction:
-        k = 1
-    return P * k
-
-
-def _scale_ties(a, b, passes, cfg):
-    """Lanes whose two scale ids are tied in the port's state.
-
-    With n aperture passes per micro-step, lane i ran in pass
-    (i // m) * n + (i % m) // (m / n). Where the engines chose different
-    scales, the per-scale mean lengths at the lane's pixel are taken in
-    float64 from the surface that pass read, and the lane is tied when the
-    two chosen scales' means are equal within the near-tie gap of
-    tests/test_torch_kernels.py (1e-5 relative).
-    """
-    m, n = cfg.chunk_size, _aperture_passes(cfg)
-    lane = np.arange(len(b.scale))
-    pass_of = (lane // m) * n + (lane % m) // (m // n)
-    assert len(passes) >= pass_of[-1] + 1
-    tied = np.zeros(len(lane), dtype=bool)
-    differ = np.nonzero(a.scale != b.scale)[0]
-    for c in np.unique(pass_of[differ]):
-        li = differ[pass_of[differ] == c]
-        ml = _scale_means_f64(passes[c], b.x[li], b.y[li], cfg)
-        cols = np.arange(li.size)
-        ma = ml[a.scale[li] // cfg.window_jump, cols]
-        mb = ml[b.scale[li] // cfg.window_jump, cols]
-        tied[li] = np.abs(mb - ma) <= 1e-5 * (np.abs(mb) + 1e-6)
-    return tied
-
-
 def _assert_engines_agree(a, b, passes, cfg, what, min_agree=0.999):
     """a: JAX engine output, b: the port's, on the same lanes; `passes`
     the port's aperture inputs (_process_recording_aperture).
 
     Scale ids count as tied where the two engines chose different scales
-    whose windows have equal mean lengths (_scale_ties): an isolated flow
+    whose windows have equal mean lengths (scale_ties): an isolated flow
     pixel has the same mean at every scale whose window holds only it,
     and the f32 integral of `farms_tpu` picks among such scales by
     rounding noise, where the port's float64 integral picks the first, as
@@ -213,7 +156,7 @@ def _assert_engines_agree(a, b, passes, cfg, what, min_agree=0.999):
     agree = (va == vb).mean()
     both = va & vb
     same = both & (a.scale == b.scale)
-    tied = both & ~same & _scale_ties(a, b, passes, cfg)
+    tied = both & ~same & scale_ties(a, b, passes, cfg)
     n_both = max(1, both.sum())
     msg = (f"{what}: valid agreement {agree:.5f} over {va.size} events "
            f"({va.sum()} valid); scale equal on {same.sum() / n_both:.5f} "
