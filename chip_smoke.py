@@ -12,13 +12,17 @@ Phases, each printed with its result and seconds:
    into farms_tpu_torch/_build);
 2. each CUDA kernel against its plain PyTorch version on the card, bitwise,
    at the main paths' shapes (320 x 320), with the median times of one
-   wrapper call and of one plain call from CUDA events, and the kernel's
-   own median device time from torch.profiler: local flow at k = 3 and k = 5, on one surface and on the
-   fidelity preset's 8-surface snapshot chain; its correction mode
-   (fold_center=False) at k = 3 and 5 on chains of 3 (coarse) and 17
-   (full) surfaces; the general kernel at k = 7 and 9 in both fold modes
-   on chains of 1 and 9; aperture with 11 scales and once at 260 x 346
-   with the y-clamp quirk;
+   wrapper call and of one plain call from CUDA events, and the median
+   device time of one call from torch.profiler (the sum of every kernel it
+   launches): local flow at k = 3 and k = 5, on one surface, on the
+   fidelity preset's 8-surface snapshot chain and on a 96-surface chain;
+   its correction mode (fold_center=False) at k = 3 and 5 on chains of 3
+   (coarse), 17 (full) and 96 surfaces; the general kernel at k = 7 and 9
+   in both fold modes on chains of 1 and 9; the float64 integral kernel
+   against the plain integral (also on the CPU), with the cells where
+   CUDA's own innermost-dimension cumsum departs from the sequential order;
+   the aperture pass (integral and pool; the pool's own device time
+   beside it) with 11 scales and once at 260 x 346 with the y-clamp quirk;
 3. the kernels' halo modes (the row shards of the halo engine,
    farms_tpu_torch/parallel/halo.py) at 320 x 320 cut into 1, 2 and 4
    bands (320, 160 and 80 rows: the shards of `--devices 1`, 2 and 4):
@@ -87,9 +91,12 @@ FLOW_COLUMNS = ("x", "y", "t", "pol", "r_true", "theta_true", "vx", "vy",
                 "r_local", "theta_local", "scale")
 NCCL_TIMEOUT = 600          # seconds for one multi-rank CLI run
 # each kernel's CUDA source and the Pallas kernel it replaces
+# (the integral replaces the XLA cumsum that aperture_pallas runs before
+# its Pallas kernel)
 KERNEL_SOURCES = {"local_flow": ("local_flow.cu", 434),
                   "local_flow_general": ("local_flow.cu", 171),
-                  "aperture": ("aperture.cu", 640)}
+                  "aperture": ("aperture.cu", 640),
+                  "integral": ("aperture.cu", 733)}
 BAND_COUNTS = (1, 2, 4)     # row shards of the halo-mode kernel checks
 # NVIDIA H100 SXM data-sheet peaks: HBM bytes/s, f32 and f64 FLOP/s
 # outside the tensor cores
@@ -126,12 +133,14 @@ def _median_ms(fn, reps: int = TIMING_REPS) -> float:
     return float(np.median(times))
 
 
-def _device_ms(fn, kernel: str, reps: int = TIMING_REPS):
-    """Median device time of one launch of the CUDA kernel whose name
-    contains `kernel`, over reps calls of fn, from torch.profiler's
-    device-side events: the kernel alone. (A CUDA-event interval around
-    one short call also holds the wrapper's host time, during which the
-    card waits.) None where three traces recorded no such kernel."""
+def _device_ms(fn, kernel: str | None = None, reps: int = TIMING_REPS):
+    """Median device time of one call of fn over reps calls, from
+    torch.profiler's device-side events: of the CUDA kernel whose name
+    contains `kernel`, or with kernel None of all the device work of a
+    call, the sum over the kernels it launches of each one's median (times
+    its launches per call). (A CUDA-event interval around one short call
+    also holds the wrapper's host time, during which the card waits.) None
+    where three traces recorded no such event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -144,10 +153,15 @@ def _device_ms(fn, kernel: str, reps: int = TIMING_REPS):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        times = [e.self_device_time_total for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and kernel in e.name]
-        if times:
-            return float(np.median(times)) / 1e3
+        by_name = {}
+        for e in prof.events():
+            if (e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                    and (kernel is None or kernel in e.name)):
+                by_name.setdefault(e.name, []).append(
+                    e.self_device_time_total)
+        if by_name:
+            return sum(float(np.median(t)) * max(1, round(len(t) / reps))
+                       for t in by_name.values()) / 1e3
     return None
 
 
@@ -193,6 +207,16 @@ def aperture_bound(n_scales: int, rows: int, Ha: int,
                       (5 * n_scales + 1) * px, 12 * n_scales * px)
     return _bound(6 * px * 4, (4 + 5 * n_scales + 1) * px,
                   (8 + 12 * n_scales) * px)
+
+
+def integral_bound(rows: int, cols: int) -> dict:
+    """Bound of one integral call: it reads flow_len, vx and vy (4-byte
+    [rows, cols] maps) and writes the float64 [4, rows + 1, cols + 1]
+    integral; per pixel a compare and 3 products in f32 and, for each of 4
+    fields, 2 sums in f64."""
+    px = rows * cols
+    return _bound(3 * px * 4 + 4 * (rows + 1) * (cols + 1) * 8, 4 * px,
+                  8 * px)
 
 
 def _stamp_surfaces(W: int, H: int, seed: int):
@@ -248,6 +272,16 @@ def _flow_fields(W: int, H: int, seed: int):
     return fl, fvx, fvy
 
 
+def _wide_fields(W: int, H: int, seed: int):
+    """Flow surfaces of magnitudes over 2^-30 .. 2^12 at 30 % of the
+    pixels: float64 sums of them round, so a summation order shows."""
+    rng = np.random.default_rng(seed)
+    mask = rng.random((W, H)) < 0.3
+    mag = 2.0 ** rng.uniform(-30, 12, (3, W, H))
+    sign = np.where(rng.random((3, W, H)) < 0.5, -1.0, 1.0)
+    return tuple((mag * sign * mask).astype(np.float32))
+
+
 def _compare(name, got, want, names):
     """Integer outputs must be equal; floats are expected bitwise equal
     (same operation order, -fmad=false). Returns the max abs float diff."""
@@ -297,7 +331,7 @@ def check_kernels(dev):
             return kernels.local_flow(chain, center, cfg, fold_center=fold)
 
         ms = _median_ms(run)
-        device_ms = _device_ms(run, "local_flow_kernel")
+        device_ms = _device_ms(run)
         plain_ms = _median_ms(lambda: plain.local_flow_core(
             chain, center, cfg, fold_center=fold))
         _phase(f"kernel {label}", t0,
@@ -324,8 +358,10 @@ def check_kernels(dev):
     # the fidelity slice's modes: the per-phase pass on its 8-surface
     # snapshot chain and correction on the coarse (3) and full (17) chains
     # at k = 3 and 5; the general kernel in both fold modes
-    cases = [(k, 8, True) for k in (3, 5)]
-    cases += [(k, n, False) for k in (3, 5) for n in (3, 17)]
+    # and a 96-surface chain in both modes, longer than a whole-chain tile
+    # of shared memory holds
+    cases = [(k, n, True) for k in (3, 5) for n in (8, 96)]
+    cases += [(k, n, False) for k in (3, 5) for n in (3, 17, 96)]
     cases += [(k, n, fold) for k in (7, 9) for n in (1, 9)
               for fold in (True, False)]
     for k, n, fold in cases:
@@ -342,7 +378,54 @@ def check_kernels(dev):
     for (W, H, quirk) in ((SENSOR, SENSOR, False), (260, 346, True)):
         t0 = time.perf_counter()
         cfg = FlowConfig(width=W, height=H, replicate_y_clamp_quirk=quirk)
-        ins = [torch.from_numpy(a).to(dev) for a in _flow_fields(W, H, 3)]
+        fields = _flow_fields(W, H, 3)
+        ins = [torch.from_numpy(a).to(dev) for a in fields]
+        # the integral kernel against plain on the card and on the CPU, on
+        # the main path's kind of fields and on fields whose float64 sums
+        # round; and CUDA's own cumsum over the innermost dimension (a
+        # parallel scan) against the sequential order the plain version
+        # makes explicit, on the latter
+        for arrays in (fields, _wide_fields(W, H, 4)):
+            cin = [torch.from_numpy(a) for a in arrays]
+            din = [a.to(dev) for a in cin]
+            kernels.reset_launches()
+            got = kernels.integral(*din)
+            if kernels.LAUNCHES["integral"] != 1:
+                raise AssertionError(f"integral: launches "
+                                     f"{kernels.LAUNCHES}")
+            want = plain.build_integral(*din)
+            cpu = plain.build_integral(*cin)
+            torch.cuda.synchronize()
+            bits = [t.view(torch.int64) for t in (got, want)]
+            if not torch.equal(*bits) or not torch.equal(
+                    bits[0].cpu(), cpu.view(torch.int64)):
+                n = int((bits[0].cpu() != cpu.view(torch.int64)).sum())
+                raise AssertionError(f"integral {W}x{H}: kernel differs "
+                                     f"from plain ({n} cells differ from "
+                                     "the cpu)")
+        gate = (din[0] > 0).to(torch.float32)
+        stack = torch.stack([gate, din[0] * gate, din[1] * gate,
+                             din[2] * gate]).to(torch.float64)
+        inner = torch.cumsum(torch.cumsum(stack, 1), 2)
+        departs = int((inner.view(torch.int64)
+                       != want[:, 1:, 1:].contiguous().view(torch.int64))
+                      .sum())
+        ms = _median_ms(lambda: kernels.integral(*ins))
+        device_ms = _device_ms(lambda: kernels.integral(*ins))
+        plain_ms = _median_ms(lambda: plain.build_integral(*ins))
+        if (W, H) == (SENSOR, SENSOR):
+            results["integral"] = dict(ms=ms, device_ms=device_ms,
+                                       plain_ms=plain_ms,
+                                       **integral_bound(W, H))
+        _phase(f"kernel integral {W}x{H}", t0,
+               f"equal bit for bit to plain on the card and on the cpu; "
+               f"max_abs_err 0.0; on fields whose float64 sums round, "
+               f"torch.cumsum over the innermost dimension on the card "
+               f"departs from the sequential order in {departs} of "
+               f"{inner.numel()} cells; kernel {ms:.4f} ms "
+               f"(device {_fmt_ms(device_ms)}), plain {plain_ms:.4f} ms")
+
+        t0 = time.perf_counter()
         got = kernels.aperture(*ins, cfg)
         want = plain.dense_aperture(*ins, cfg)
         torch.cuda.synchronize()
@@ -350,18 +433,19 @@ def check_kernels(dev):
         errs["aperture"] = max(errs["aperture"], err)
         pooled = int((got[2] > 0).sum())
         ms = _median_ms(lambda: kernels.aperture(*ins, cfg))
-        device_ms = _device_ms(lambda: kernels.aperture(*ins, cfg),
-                               "aperture_kernel")
+        device_ms = _device_ms(lambda: kernels.aperture(*ins, cfg))
+        pool_ms = _device_ms(lambda: kernels.aperture(*ins, cfg),
+                             "aperture_kernel")
         plain_ms = _median_ms(lambda: plain.dense_aperture(*ins, cfg))
         if (W, H) == (SENSOR, SENSOR):
             results["aperture"] = dict(
-                ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-                **aperture_bound(cfg.num_scales, W, H))
+                ms=ms, device_ms=device_ms, pool_device_ms=pool_ms,
+                plain_ms=plain_ms, **aperture_bound(cfg.num_scales, W, H))
         _phase(f"kernel aperture {W}x{H} quirk={quirk}", t0,
                f"equal to plain ({cfg.num_scales} scales, {pooled} pixels "
                f"pooled past scale 0); max_abs_err {err}; kernel {ms:.4f} "
-               f"ms (its kernel on the device {_fmt_ms(device_ms)}), plain "
-               f"{plain_ms:.4f} ms")
+               f"ms (device: the pass {_fmt_ms(device_ms)}, its pool "
+               f"{_fmt_ms(pool_ms)}), plain {plain_ms:.4f} ms")
     for name, r in results.items():
         r["max_abs_err"] = errs[name]
     return results
@@ -416,12 +500,10 @@ def check_halo_kernels(dev):
                 _compare(f"{label} band {i} of {nb} vs whole-sensor rows",
                          got, [w[i * rows:(i + 1) * rows] for w in whole],
                          names)
-        kernel = "aperture_kernel" if name == "aperture" else \
-            "local_flow_kernel"
         times, said = {}, []
         for nb, i in ((4, 1), (1, 0)):
             ms = _median_ms(lambda: run_kernel(nb, i))
-            device_ms = _device_ms(lambda: run_kernel(nb, i), kernel)
+            device_ms = _device_ms(lambda: run_kernel(nb, i))
             plain_ms = _median_ms(lambda: run_plain(nb, i))
             times[nb] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms)
             said.append(f"{SENSOR // nb}-row band kernel {ms:.4f} ms "
@@ -625,10 +707,12 @@ def _stream_argv(base, preset):
 
 def _preset_launches(steps):
     """Launches of `steps` micro-steps at each preset: 2 sub-phases per
-    step, each a local-flow and an aperture pass; the fidelity preset adds
-    one correction-mode local-flow pass per step."""
-    return {"benchmark": {"local_flow": 2 * steps, "aperture": 2 * steps},
-            "fidelity": {"local_flow": 3 * steps, "aperture": 2 * steps}}
+    step, each a local-flow and an aperture pass (an integral and a pool);
+    the fidelity preset adds one correction-mode local-flow pass per
+    step."""
+    ap = {"aperture": 2 * steps, "integral": 2 * steps}
+    return {"benchmark": {"local_flow": 2 * steps, **ap},
+            "fidelity": {"local_flow": 3 * steps, **ap}}
 
 
 def check_main_paths(base, work):
@@ -649,7 +733,8 @@ def check_main_paths(base, work):
             "--filtersize", "7", "--numEvents", str(K7_EVENTS),
             "--steps-per-scan", str(k7_steps)],
         base, K7_EVENTS, {"local_flow_general": 2 * k7_steps,
-                          "aperture": 2 * k7_steps})
+                          "aperture": 2 * k7_steps,
+                          "integral": 2 * k7_steps})
     return results, card_files
 
 
@@ -821,7 +906,7 @@ def main() -> int:
         by_path = {label: counts[name]
                    for label, (counts, _) in paths.items()}
         halo = {f"halo{k}" if k.startswith("1_") else f"halo_{k}": v
-                for k, v in halo_timings[name].items()}
+                for k, v in halo_timings.get(name, {}).items()}
         entries.append(dict(
             name=name, route="cuda",
             source=f"farms_tpu_torch/csrc/{src}",

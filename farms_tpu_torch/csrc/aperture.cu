@@ -1,15 +1,27 @@
-// Multi-scale aperture pooling, one thread per pixel.
+// Multi-scale aperture pooling, one thread per pixel, and the float64
+// integral image it reads.
 //
 // Replaces the Pallas kernel `_scales_kernel`
 // (farms_tpu/ops/pallas/kernels.py:640, called from aperture_pallas :693),
-// in its default and its band (`halo`, `integ`) modes.
-// Plain version and contract: dense_aperture in
-// farms_tpu_torch/ops/dense_flow.py; the 4-field integral image
-// (gate, len*gate, vx*gate, vy*gate; a float64 double cumsum with a zero
-// first row and column, see build_integral) is built by the wrapper with
-// the same torch ops as the plain version.
+// in its default and its band (`halo`, `integ`) modes, and the integral
+// that aperture_pallas builds before it.
+// Plain versions and contracts: dense_aperture and build_integral in
+// farms_tpu_torch/ops/dense_flow.py.
 //
-// Per pixel and scale s: 4-corner box sums of each field over the window
+// The integral (farms_integral, two launches): the 4 gated fields (gate =
+// len > 0, len*gate, vx*gate, vy*gate), formed in f32 and widened to
+// float64, summed down each column (integral_x: one thread per field and
+// column), then along each row in place (integral_y: one warp per field
+// and 32 rows), each a sequential left fold from 0.0 in the plain
+// version's order, with the zero first row and column written in place.
+// What bounds it: latency, not its 4.5 MB of traffic. The plain order
+// leaves 4 x (W + H) independent chains of dependent float64 adds, too
+// few to fill the card; each block keeps the next chunks of its inputs in
+// flight (a cp.async ring of shared memory) while it sums one. What it
+// saves is the ten eager torch ops and their float64 round trips.
+//
+// The pool (aperture_kernel), per pixel and scale s: 4-corner box sums of
+// each field over the window
 // clamped to the sensor (x to [0, W], y to [0, y_clip], which carries the
 // reference's y-clamped-by-width quirk, vFlow.cpp:998-1000), taken in
 // float64 and rounded once to f32; then the count, mean length and mean
@@ -17,7 +29,7 @@
 // (vFlow.cpp:1052-1059); the center flow and scale 0 are the fallback when
 // that maximum is <= 0 (vFlow.cpp:1086-1094).
 //
-// What bounds it on the card: loads. Each pixel reads num_scales x 4 x 4
+// What bounds the pool on the card: loads. Each pixel reads num_scales x 4 x 4
 // integral values at scattered rows. A shared-memory slab of a 16 x 32
 // tile with its 2M+2 halo would be ~250 KB at M = 50, above the 227 KB a
 // block may use, so the corners are read straight from device memory with
@@ -38,6 +50,8 @@
 // which stays in L2 like the whole integral.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "async_copy.cuh"
 
 namespace {
 
@@ -91,6 +105,126 @@ aperture_kernel(const double* __restrict__ integ, int integ_rows, int rows,
   scale_out[o] = pooled ? best_s : 0;
 }
 
+constexpr int SCAN = 32;   // threads of an integral block (one warp)
+constexpr int NSTAGE = 4;  // ring slots of the integral kernels
+
+// Down each column: thread (field f, integral column j) writes rows 0..rows
+// of column j; j = 0 is the zero column. The sum is a chain of dependent
+// adds, so the inputs of the next NSTAGE - 1 chunks of SCAN rows are in
+// flight (cp.async) while a chunk is summed. A thread reads only the
+// shared-memory words it copied, so it needs no barrier.
+__global__ void __launch_bounds__(SCAN)
+integral_x(const float* __restrict__ flow_len,
+           const float* __restrict__ flow_vx,
+           const float* __restrict__ flow_vy, int rows, int cols,
+           double* __restrict__ integ) {
+  __shared__ float ring[NSTAGE][2][SCAN][SCAN];  // len, and vx or vy
+  const int lane = threadIdx.x;
+  const int j = blockIdx.x * SCAN + lane;
+  const int f = blockIdx.y;
+  if (j > cols) return;
+  const int L = cols + 1;
+  double* I = integ + (size_t)f * (rows + 1) * L + j;
+  I[0] = 0.0;
+  if (j == 0) {
+    for (int i = 1; i <= rows; ++i) I[(size_t)i * L] = 0.0;
+    return;
+  }
+  const float* vel = f == 2 ? flow_vx : flow_vy;
+  auto stage = [&](int c) {  // rows c * SCAN .. of column j into its slot
+    if (c * SCAN < rows) {
+      for (int u = 0; u < SCAN; ++u) {
+        const int i = c * SCAN + u;
+        const size_t p = i < rows ? (size_t)i * cols + j - 1 : 0;
+        const int n = i < rows ? 4 : 0;
+        farms::cp_async4(&ring[c % NSTAGE][0][u][lane], flow_len + p, n);
+        if (f >= 2)
+          farms::cp_async4(&ring[c % NSTAGE][1][u][lane], vel + p, n);
+      }
+    }
+    farms::commit();
+  };
+#pragma unroll
+  for (int c = 0; c < NSTAGE - 1; ++c) stage(c);
+  double acc = 0.0;
+  for (int c = 0; c * SCAN < rows; ++c) {
+    farms::wait<NSTAGE - 2>();
+    stage(c + NSTAGE - 1);  // into the slot of chunk c - 1, read already
+    // the chunk's field values first, off the chain of dependent adds
+    const float(*in)[SCAN][SCAN] = ring[c % NSTAGE];
+    double val[SCAN];
+#pragma unroll
+    for (int u = 0; u < SCAN; ++u) {
+      const float len = in[0][u][lane];
+      const float gate = len > 0.0f ? 1.0f : 0.0f;
+      val[u] = (double)(f == 0   ? gate
+                        : f == 1 ? len * gate
+                                 : in[1][u][lane] * gate);
+    }
+#pragma unroll
+    for (int u = 0; u < SCAN; ++u) {
+      if (c * SCAN + u < rows) {
+        acc = acc + val[u];
+        I[(size_t)(c * SCAN + u + 1) * L] = acc;
+      }
+    }
+  }
+}
+
+// Along each row, in place: warp (field f, rows i0..i0+31) scans a 32 x 32
+// tile at a time, lane q carrying row i0 + q's sum from tile to tile; the
+// next NSTAGE - 1 tiles are in flight (cp.async) during a tile's scan.
+__global__ void __launch_bounds__(SCAN)
+integral_y(double* __restrict__ integ, int rows, int cols) {
+  __shared__ double ring[NSTAGE][SCAN][SCAN + 1];
+  const int f = blockIdx.y;
+  const int i0 = 1 + blockIdx.x * SCAN;  // row 0 is the zero row
+  const int L = cols + 1;
+  const int lane = threadIdx.x;
+  double* I = integ + (size_t)f * (rows + 1) * L;
+  const int nrow = min(SCAN, rows + 1 - i0);
+  auto stage = [&](int c) {  // columns 1 + c * SCAN .. of the block's rows
+    const int j = 1 + c * SCAN + lane;
+    if (j - lane <= cols) {
+      for (int q = 0; q < SCAN; ++q) {
+        const bool in = q < nrow && j <= cols;
+        farms::cp_async8(&ring[c % NSTAGE][q][lane],
+                         in ? I + (size_t)(i0 + q) * L + j : I, in ? 8 : 0);
+      }
+    }
+    farms::commit();
+  };
+#pragma unroll
+  for (int c = 0; c < NSTAGE - 1; ++c) stage(c);
+  double acc = 0.0;                      // the zero first column
+  for (int c = 0; 1 + c * SCAN <= cols; ++c) {
+    farms::wait<NSTAGE - 2>();
+    __syncwarp();  // every lane's copies; and tile c - 1 is written back
+    stage(c + NSTAGE - 1);
+    double(*t)[SCAN + 1] = ring[c % NSTAGE];
+    const int ncol = min(SCAN, cols - c * SCAN);
+    if (lane < nrow) {  // loads, the chain of dependent adds, stores
+      double row[SCAN];
+#pragma unroll
+      for (int k = 0; k < SCAN; ++k) row[k] = t[lane][k];
+#pragma unroll
+      for (int k = 0; k < SCAN; ++k) {
+        if (k < ncol) {
+          acc = acc + row[k];
+          row[k] = acc;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < SCAN; ++k) t[lane][k] = row[k];
+    }
+    __syncwarp();
+    const int j = 1 + c * SCAN + lane;
+#pragma unroll
+    for (int q = 0; q < SCAN; ++q)
+      if (q < nrow && j <= cols) I[(size_t)(i0 + q) * L + j] = t[q][lane];
+  }
+}
+
 }  // namespace
 
 // C entry point. integ: float64 [4, integ_rows, Ha + 1], the whole
@@ -112,5 +246,25 @@ extern "C" int farms_aperture(const void* integ, int integ_rows, int rows,
       n_scales, jump, static_cast<const float*>(flow_vx),
       static_cast<const float*>(flow_vy), static_cast<float*>(tvx),
       static_cast<float*>(tvy), static_cast<int32_t*>(scale));
+  return (int)cudaGetLastError();
+}
+
+// C entry point of the integral. flow_len/flow_vx/flow_vy: f32 [rows,
+// cols]; integ: float64 [4, rows + 1, cols + 1]; all contiguous on the
+// current device. Returns the first failed launch's cudaError_t
+// (cudaErrorInvalidValue for an empty shape).
+extern "C" int farms_integral(const void* flow_len, const void* flow_vx,
+                              const void* flow_vy, int rows, int cols,
+                              void* integ, void* stream) {
+  if (rows < 1 || cols < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  integral_x<<<dim3((cols + SCAN) / SCAN, 4), SCAN, 0, s>>>(
+      static_cast<const float*>(flow_len), static_cast<const float*>(flow_vx),
+      static_cast<const float*>(flow_vy), rows, cols,
+      static_cast<double*>(integ));
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  integral_y<<<dim3((rows + SCAN - 1) / SCAN, 4), SCAN, 0, s>>>(
+      static_cast<double*>(integ), rows, cols);
   return (int)cudaGetLastError();
 }

@@ -4,8 +4,8 @@ Each source compiles with its own `nvcc` process, all started together,
 and the objects link into one shared library with a plain C interface,
 loaded with ctypes (no PyTorch headers, so a build takes seconds). The
 library is built on first use into `farms_tpu_torch/_build/`, named by a
-hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused. Nothing here runs at import time.
+hash of the sources, their headers and the flags, so an edited source
+rebuilds and an unchanged one is reused. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -36,6 +36,8 @@ _SIGNATURES = {
     # flow_vy, tvx, tvy, scale, stream
     "farms_aperture": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                        _P),
+    # flow_len, flow_vx, flow_vy, rows, cols, integ, stream
+    "farms_integral": (_P, _P, _P, _I, _I, _P, _P),
 }
 
 _lib = None
@@ -54,8 +56,8 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((_PKG / "csrc" / name).read_bytes())
+    for path in sorted((_PKG / "csrc").iterdir()):   # sources and headers
+        h.update(path.name.encode() + path.read_bytes())
     return BUILD_DIR / f"libfarms_kernels_{h.hexdigest()[:16]}.so"
 
 

@@ -254,12 +254,22 @@ def build_integral(flow_len: torch.Tensor, flow_vx: torch.Tensor,
     with the summation order: torch.cumsum accumulates f32 in double on the
     CPU and in f32 on CUDA. In float64 the box sums of such windows are
     exact, so the tie resolves to the first scale as in the float64
-    reference, and the CPU and CUDA paths agree.
+    reference.
+
+    Summation order: a sequential left fold from 0.0 down each column (x),
+    then one along each row (y), on every device. Float64 sums of f32
+    values are not exact in general, so the order sets the last bit, and
+    CUDA's cumsum over the innermost dimension is a parallel scan; both
+    cumsums therefore run over an outer dimension (y over the transposed
+    tensor), which PyTorch folds sequentially on the CPU and on CUDA. The
+    integral kernel (ops/kernels.integral) folds in the same order, so the
+    CPU, this version on the card and the kernel agree bit for bit.
     """
     gate = (flow_len > 0).to(torch.float32)
     fields = torch.stack(
         [gate, flow_len * gate, flow_vx * gate, flow_vy * gate], 0)
-    integ = torch.cumsum(torch.cumsum(fields.to(torch.float64), 1), 2)
+    integ = torch.cumsum(fields.to(torch.float64), 1)
+    integ = torch.cumsum(integ.transpose(1, 2), 1).transpose(1, 2)
     return F.pad(integ, (1, 0, 1, 0))
 
 

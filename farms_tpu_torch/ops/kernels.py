@@ -3,10 +3,11 @@
 Counterpart of `farms_tpu.ops.pallas.kernels`. The device of the input
 decides the path: a CPU tensor runs the plain PyTorch version
 (ops/dense_flow.py), a CUDA tensor launches the kernel
-(csrc/local_flow.cu: its k = 3 and 5 instances, or the general kernel for
-any other odd k; csrc/aperture.cu) or raises, also where the staged tile
-of a filter size or chain fits no kernel's shared memory. There is no
-fallback between the two.
+(csrc/local_flow.cu: its streamed k = 3 and 5 instances, or the general
+kernel for any other odd k; csrc/aperture.cu: the float64 integral and the
+pool) or raises, also where the general kernel's staged tile of a filter
+size and chain fits no shared memory. There is no fallback between the
+two.
 
 Each wrapper counts its kernel launches in `LAUNCHES` (only where it
 launches; plain-path calls do not count), so a run can show that its main
@@ -24,13 +25,16 @@ from farms_tpu_torch.ops import _build
 from farms_tpu_torch.ops.dense_flow import (aperture_y_clip, build_integral,
                                             dense_aperture, local_flow_core)
 
-LAUNCHES = {"local_flow": 0, "local_flow_general": 0, "aperture": 0}
+LAUNCHES = {"local_flow": 0, "local_flow_general": 0, "aperture": 0,
+            "integral": 0}
 
 # shared memory one block may use on sm_90 (227 KB)
 SMEM_BYTES = 232448
-# tile columns of the local-flow kernels (one warp along y), and the tile
-# rows of the k = 3 and 5 instances; the general kernel takes 16 or fewer
+# tile columns of the local-flow kernels (one warp along y), the tile rows
+# of the streamed k = 3 and 5 instances (csrc/local_flow.cu Streamed), and
+# the most tile rows of the general kernel
 _TILE_COLS = 32
+_STREAMED_ROWS = {3: 8, 5: 4}
 _TILE_ROWS = 16
 
 
@@ -63,15 +67,17 @@ def _raise_on(rc: int, what: str) -> None:
 def local_flow_tile_rows(filter_size: int, n_chain: int) -> int:
     """Tile rows of the local-flow kernel for this filter size and chain.
 
-    A block stages its tile plus a 2R halo of the n_chain chain surfaces
-    and the center in shared memory. The k = 3 and 5 instances have 16
-    rows; the general kernel takes the most rows of 16, 8, 4, 2, 1 that
-    fit. Raises NotImplementedError where none fits: no kernel streams a
-    chain through shared memory yet (ROADMAP Queue 2 item 4).
+    The streamed k = 3 and 5 instances bring the chain through a fixed
+    ring of shared memory, so any chain fits their fixed tile rows. The
+    general kernel stages its tile plus a 2R halo of the n_chain chain
+    surfaces and the center in shared memory at once and takes the most
+    rows of 16, 8, 4, 2, 1 that fit; it raises NotImplementedError where
+    none fits (ROADMAP Queue 2 item 4).
     """
+    if filter_size in _STREAMED_ROWS:
+        return _STREAMED_ROWS[filter_size]
     R = 2 * (filter_size // 2)
-    rows = (_TILE_ROWS,) if filter_size in (3, 5) else (16, 8, 4, 2, 1)
-    for tx in rows:
+    for tx in (_TILE_ROWS, 8, 4, 2, 1):
         if (n_chain + 1) * (tx + 2 * R) * (_TILE_COLS + 2 * R) * 4 <= SMEM_BYTES:
             return tx
     raise NotImplementedError(
@@ -148,14 +154,41 @@ def local_flow(chain: torch.Tensor, center: torch.Tensor, cfg: FlowConfig,
     return accept, a, b, dtdp, cand
 
 
+def integral(flow_len: torch.Tensor, flow_vx: torch.Tensor,
+             flow_vy: torch.Tensor) -> torch.Tensor:
+    """The float64 integral image of f32 [rows, cols] flow surfaces: the
+    contract, summation order included, of dense_flow.build_integral,
+    [4, rows + 1, cols + 1]. Counted under "integral", one per call (its
+    two launches)."""
+    if flow_len.device.type == "cpu":
+        return build_integral(flow_len, flow_vx, flow_vy)
+    if flow_len.device.type != "cuda":
+        raise ValueError(f"no integral kernel for device {flow_len.device}")
+    if flow_len.dim() != 2:
+        raise ValueError(f"flow_len must be 2-D, got {tuple(flow_len.shape)}")
+    dev = flow_len.device
+    rows, cols = flow_len.shape
+    for name, t in (("flow_len", flow_len), ("flow_vx", flow_vx),
+                    ("flow_vy", flow_vy)):
+        _check(t, name, torch.float32, (rows, cols), dev)
+    integ = torch.empty((4, rows + 1, cols + 1), dtype=torch.float64,
+                        device=dev)
+    rc = _build.load().farms_integral(
+        flow_len.data_ptr(), flow_vx.data_ptr(), flow_vy.data_ptr(), rows,
+        cols, integ.data_ptr(), _stream(dev))
+    _raise_on(rc, "integral")
+    LAUNCHES["integral"] += 1
+    return integ
+
+
 def aperture(flow_len: torch.Tensor, flow_vx: torch.Tensor,
              flow_vy: torch.Tensor, cfg: FlowConfig, halo: int = 0,
              integ=None):
     """Multi-scale aperture pooling; contract of dense_flow.dense_aperture.
 
     f32 [W, H] flow surfaces in; (true_vx f32, true_vy f32, scale i32) out.
-    The integral image is built with the plain version's torch ops, then
-    the kernel pools every scale. Band mode (parallel/halo.py): `integ` is
+    The integral kernel builds the float64 integral image (`integral`),
+    then the pool kernel pools every scale. Band mode (parallel/halo.py): `integ` is
     the float64 integral band [4, rows + 2*halo + 1, Ha + 1] of a row
     shard, halo >= max_window + 1, and the flow surfaces and outputs are
     the shard's core rows [rows, Ha].
@@ -182,7 +215,7 @@ def aperture(flow_len: torch.Tensor, flow_vx: torch.Tensor,
         _check(t, name, torch.float32, shape, dev)
     rows, Ha = shape
     if integ is None:
-        integ = build_integral(flow_len, flow_vx, flow_vy)
+        integ = integral(flow_len, flow_vx, flow_vy)
     _check(integ, "integral", torch.float64, (4, rows + 2 * halo + 1, Ha + 1),
            dev)
     lib = _build.load()

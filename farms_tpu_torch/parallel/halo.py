@@ -31,8 +31,7 @@ import torch.nn.functional as F
 from farms_tpu_torch.config import FlowConfig
 from farms_tpu_torch.events.io import EventBatch, FlowOutput
 from farms_tpu_torch.ops import kernels
-from farms_tpu_torch.ops.dense_flow import (build_integral, onehot_gather,
-                                            trig_tail)
+from farms_tpu_torch.ops.dense_flow import onehot_gather, trig_tail
 from farms_tpu_torch.parallel import mesh
 from farms_tpu_torch.pipeline.engine import (FlowEngine, _coarse,
                                              _empty_output, _lane_table,
@@ -102,7 +101,7 @@ def assemble_integral_band(flow_len, flow_vx, flow_vy, n: int, A: int,
 
     Box sums are linear, so no rank integrates another's rows:
     1. each rank builds the float64 prefix integral L of its own rows
-       (dense_flow.build_integral, the whole-sensor engine's own op);
+       (kernels.integral, the whole-sensor engine's own op);
     2. the per-shard total rows (column sums, [4, Ha + 1]) are gathered
        from every rank, which gives each shard's offset C_k (the sum of the
        totals above it) and the sensor's total T;
@@ -113,7 +112,7 @@ def assemble_integral_band(flow_len, flow_vx, flow_vy, n: int, A: int,
     With one rank the band is L between A zero rows and A copies of T:
     the whole-sensor integral's values exactly.
     """
-    L = build_integral(flow_len, flow_vx, flow_vy)     # [4, rows + 1, Ha + 1]
+    L = kernels.integral(flow_len, flow_vx, flow_vy)   # [4, rows + 1, Ha + 1]
     if n == 1:
         own, total = L[:, 1:], L[:, -1:]
     else:

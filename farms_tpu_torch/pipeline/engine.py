@@ -436,7 +436,9 @@ class FlowEngine:
         require_slice(cfg)
         device = torch.device(device)
         if device.type == "cuda":
-            # raise now, not mid-stream, where a chain fits no kernel
+            # raise now, not mid-stream, where a chain fits no tile of the
+            # general kernel (k >= 7; the k = 3 and 5 kernels stream any
+            # chain)
             for n in chain_lengths(cfg):
                 if n:
                     kernels.local_flow_tile_rows(cfg.filter_size, n)

@@ -1,0 +1,177 @@
+#!/usr/bin/env python3
+"""Device times of every kernel case of the PyTorch port, for one tree.
+
+Times each hand-written kernel at the shapes of `chip_smoke.py`'s phases 2
+and 3 (320 x 320; one interior 80-row band and the one 320-row band for
+the halo modes): the median device time of one wrapper call over 30 calls,
+from torch.profiler (the sum of every device kernel the call launches, so
+the aperture pass counts its integral), and the aperture pool kernel's own.
+The inputs and the timing helper are `chip_smoke.py`'s, taken from this
+script's checkout; the kernels are those of `--tree`, a checkout of the
+repository (default: this one), so that two trees can be timed in one call
+on one card, in turns:
+
+    python scripts/torch_kernel_times.py --tree . --label new
+    python scripts/torch_kernel_times.py --tree <parent> --label parent
+
+`--ptxas` also prints each kernel's registers and spill bytes from
+`nvcc -Xptxas -v`. Prints one JSON line per case and a summary line.
+Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SENSOR = 320
+
+
+def _helpers():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_helpers", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ptxas(_build) -> list:
+    """Registers and spill bytes of every kernel, from -Xptxas -v."""
+    out = []
+    nvcc = _build._nvcc()
+    filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
+    for src in _build.SOURCES:
+        proc = subprocess.run(
+            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+             os.devnull, str(_build._PKG / "csrc" / src)],
+            capture_output=True, text=True, check=True)
+        name = spill = None
+        for line in proc.stderr.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = m.group(1)
+                if os.path.exists(filt):
+                    name = subprocess.run([filt, name], capture_output=True,
+                                          text=True).stdout.strip()
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and name:
+                spill = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                out.append({"source": src, "kernel": name,
+                            "registers": int(m.group(1)),
+                            "spill_bytes": spill})
+                name = None
+    return out
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--tree", default=ROOT)
+    p.add_argument("--label", default="")
+    p.add_argument("--ptxas", action="store_true")
+    args = p.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    import torch
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    from farms_tpu_torch.config import FlowConfig
+    from farms_tpu_torch.ops import _build, kernels
+    from farms_tpu_torch.ops import dense_flow as plain
+    if not kernels.__file__.startswith(tree):
+        raise RuntimeError(f"imported {kernels.__file__}, not from {tree}")
+    cs = _helpers()
+    dev = torch.device("cuda")
+    label = args.label or tree
+    smi = cs._nvidia_smi()
+    _build.load()
+    if args.ptxas:
+        for row in ptxas(_build):
+            print(json.dumps({"tree": label, "ptxas": row}), flush=True)
+
+    def T(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in arrays]
+
+    rows = []
+
+    def case(name, fn, pool=False):
+        try:
+            fn()
+        except NotImplementedError as e:
+            row = {"case": name, "raises": str(e)}
+        else:
+            row = {"case": name, "device_ms": cs._device_ms(fn)}
+            if pool:
+                row["pool_device_ms"] = cs._device_ms(fn, "aperture_kernel")
+        rows.append(row)
+        print(json.dumps({"tree": label, **row}), flush=True)
+
+    # phase 2: the whole-sensor local-flow modes
+    chains = [(k, n, True) for k in (3, 5) for n in (1, 8, 96)]
+    chains += [(k, n, False) for k in (3, 5) for n in (3, 17, 96)]
+    chains += [(k, n, fold) for k in (7, 9) for n in (1, 9)
+               for fold in (True, False)]
+    for k, n, fold in chains:
+        cfg = FlowConfig(width=SENSOR, height=SENSOR, filter_size=k)
+        surfs, t_post, rank2 = cs._stamp_chain(SENSOR, SENSOR, 100 + k + n, n)
+        chain, center = T(surfs, t_post if fold else rank2)
+        case(f"local_flow k={k} chain={n} fold_center={fold}",
+             lambda cfg=cfg, chain=chain, center=center, fold=fold:
+             kernels.local_flow(chain, center, cfg, fold_center=fold))
+
+    # phase 2: the integral and the aperture pass (the parent's integral is
+    # the plain version's eager ops, which its wrapper ran)
+    integral = getattr(kernels, "integral", plain.build_integral)
+    for (W, H, quirk) in ((SENSOR, SENSOR, False), (260, 346, True)):
+        cfg = FlowConfig(width=W, height=H, replicate_y_clamp_quirk=quirk)
+        ins = T(*cs._flow_fields(W, H, 3))
+        case(f"integral {W}x{H}", lambda ins=ins: integral(*ins))
+        case(f"aperture {W}x{H}",
+             lambda ins=ins, cfg=cfg: kernels.aperture(*ins, cfg), pool=True)
+
+    # phase 3: halo modes, band 1 of 4 (80 rows) and the one 320-row band
+    for k, n, fold in [(3, 1, True), (3, 8, True), (5, 1, True),
+                       (5, 8, True), (3, 3, False), (5, 3, False),
+                       (7, 1, True)]:
+        cfg = FlowConfig(width=SENSOR, height=SENSOR, filter_size=k)
+        R = cfg.support_radius
+        surfs, t_post, rank2 = cs._stamp_chain(SENSOR, SENSOR, 200 + k + n, n)
+        center = t_post if fold else rank2
+        for nb, i in ((4, 1), (1, 0)):
+            ch, ce = T(cs._band(surfs, nb, i, R), cs._band(center, nb, i, R))
+            case(f"halo local_flow k={k} chain={n} fold_center={fold} "
+                 f"rows={SENSOR // nb}",
+                 lambda cfg=cfg, ch=ch, ce=ce, fold=fold, R=R, o=i * SENSOR
+                 // nb: kernels.local_flow(ch, ce, cfg, fold_center=fold,
+                                           halo=R, row_offset=o))
+    cfg = FlowConfig(width=SENSOR, height=SENSOR)
+    A = cfg.max_window + 1
+    ins = T(*cs._flow_fields(SENSOR, SENSOR, 6))
+    integ = plain.build_integral(*ins)
+    full = torch.cat([torch.zeros_like(integ[:, :A]), integ,
+                      integ[:, -1:].expand(-1, A, -1)], 1)
+    for nb, i in ((4, 1), (1, 0)):
+        n_rows = SENSOR // nb
+        core = [a[i * n_rows:(i + 1) * n_rows] for a in ins]
+        band = full[:, i * n_rows:(i + 1) * n_rows + 2 * A + 1].contiguous()
+        case(f"halo aperture rows={n_rows}",
+             lambda core=core, band=band: kernels.aperture(
+                 *core, cfg, halo=A, integ=band))
+    print(json.dumps({"tree": label, "card": smi, "torch": torch.__version__,
+                      "cuda": torch.version.cuda, "cases": len(rows)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

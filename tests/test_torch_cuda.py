@@ -94,19 +94,27 @@ def _chain(W, H, seed, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k, n_chain, fold_center", [
-    (3, 8, True), (5, 8, True), (3, 3, False), (5, 17, False),
-    (7, 1, True), (7, 9, False), (9, 9, True), (9, 1, False)])
-def test_cuda_local_flow_modes_match_plain(cuda, k, n_chain, fold_center):
-    """The k = 3/5 kernel on the fidelity preset's 8-surface snapshot
-    chain, correction mode (fold_center=False) of both local-flow kernels,
-    and the general kernel (k >= 7) in both modes, bitwise against plain."""
-    cfg = TConfig(width=320, height=320, filter_size=k)
-    chain, center = _chain(320, 320, seed=10 + k, n=n_chain)
+@pytest.mark.parametrize("k, n_chain, fold_center, geom", [
+    (3, 8, True, (320, 320)), (5, 8, True, (320, 320)),
+    (3, 3, False, (320, 320)), (5, 17, False, (320, 320)),
+    (3, 96, True, (320, 320)), (5, 96, False, (320, 320)),
+    (3, 8, True, (260, 346)), (5, 17, False, (260, 346)),
+    (7, 1, True, (320, 320)), (7, 9, False, (320, 320)),
+    (9, 9, True, (320, 320)), (9, 1, False, (320, 320))])
+def test_cuda_local_flow_modes_match_plain(cuda, k, n_chain, fold_center,
+                                           geom):
+    """The streamed k = 3/5 kernels on the fidelity preset's 8-surface
+    snapshot chain and on 96 surfaces, also on the 260 x 346 geometry of
+    the y-clamp quirk (W != H), correction mode (fold_center=False) of
+    both local-flow kernels, and the general kernel (k >= 7) in both
+    modes, bitwise against plain."""
+    W, H = geom
+    cfg = TConfig(width=W, height=H, filter_size=k)
+    chain, center = _chain(W, H, seed=10 + k, n=n_chain)
     if fold_center:
         # the surface after the chain: every third row written later
         last = chain[-1].view(np.uint32)
-        rows = (np.arange(320) % 3 == 0)[:, None] & (last != 0)
+        rows = (np.arange(W) % 3 == 0)[:, None] & (last != 0)
         center = np.where(rows, last + np.uint32(700), last).view(np.int32)
     chain = torch.from_numpy(chain).to(cuda)
     center = torch.from_numpy(center).to(cuda)
@@ -120,13 +128,78 @@ def test_cuda_local_flow_modes_match_plain(cuda, k, n_chain, fold_center):
 
 
 @pytest.mark.cuda
-def test_cuda_chain_that_fits_no_kernel_raises(cuda):
-    cfg = TConfig(width=64, height=64, filter_size=5)
-    chain = torch.zeros((60, 64, 64), dtype=torch.int32, device=cuda)
+@pytest.mark.parametrize("k, n_chain", [(5, 60), (3, 100)])
+def test_cuda_long_chain_matches_plain(cuda, k, n_chain):
+    """Chains past what a whole-chain tile of shared memory held (59
+    surfaces at k = 5, 79 at k = 3) stream through the k = 3/5 kernels,
+    bitwise equal to plain in both fold modes."""
+    cfg = TConfig(width=64, height=64, filter_size=k)
+    chain, center = _chain(64, 64, seed=30 + k, n=n_chain)
+    chain = torch.from_numpy(chain).to(cuda)
+    for fold, c in ((False, center), (True, chain[-1].cpu().numpy())):
+        c = torch.from_numpy(np.ascontiguousarray(c)).to(cuda)
+        tk.reset_launches()
+        got = tk.local_flow(chain, c, cfg, fold_center=fold)
+        assert tk.LAUNCHES["local_flow"] == 1
+        want = tdf.local_flow_core(chain, c, cfg, fold_center=fold)
+        for label, g, w in zip(["accept", "a", "b", "dtdp", "cand"], got,
+                               want):
+            assert torch.equal(g, w), (fold, label)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_with_a_65_surface_chain_equals_cpu(cuda):
+    """The k = 5 engine whose correction chain has 65 surfaces (refused
+    when the kernel staged the whole chain) runs on the card and gives the
+    CPU engine's valid flags and scale ids on every event, and its flows
+    within 1e-5 relative (the trig tail's float ops round differently on
+    the two devices)."""
+    from farms_tpu_torch.events.io import synthetic_random_events
+    from farms_tpu_torch.pipeline.engine import FlowEngine, chain_lengths
+
+    cfg = TConfig(width=64, height=64, filter_size=5, chunk_size=1024,
+                  sub_phases=4, causal_snapshots=16, center_correction=64)
+    assert chain_lengths(cfg) == (16, 65)
+    ev = synthetic_random_events(4096, width=64, height=64, rate_hz=2e6,
+                                 seed=5)
+    want = FlowEngine(cfg, device="cpu").process(ev)
     tk.reset_launches()
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
-        tk.local_flow(chain, chain[0], cfg)
-    assert sum(tk.LAUNCHES.values()) == 0
+    got = FlowEngine(cfg, device=cuda).process(ev)
+    assert tk.LAUNCHES["local_flow"] > 0 and tk.LAUNCHES["integral"] > 0
+    np.testing.assert_array_equal(got.r_local > 0, want.r_local > 0)
+    np.testing.assert_array_equal(got.scale, want.scale)
+    assert (want.r_local > 0).sum() > 20
+    for col in ("vx", "vy", "r_local", "r_true"):
+        np.testing.assert_allclose(getattr(got, col), getattr(want, col),
+                                   rtol=1e-5, atol=1e-6, err_msg=col)
+
+
+def _wide_fields(W, H, seed):
+    """Flow magnitudes over 2^-30 .. 2^12: float64 sums of them round."""
+    rng = np.random.default_rng(seed)
+    mask = rng.random((W, H)) < 0.3
+    mag = 2.0 ** rng.uniform(-30, 12, (3, W, H))
+    sign = np.where(rng.random((3, W, H)) < 0.5, -1.0, 1.0)
+    return tuple((mag * sign * mask).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", [(320, 320), (260, 346)])
+@pytest.mark.parametrize("wide", [False, True])
+def test_cuda_integral_kernel_matches_plain(cuda, geom, wide):
+    """The float64 integral kernel, bit for bit against the plain version
+    on the card and on the CPU (one summation order on both devices)."""
+    W, H = geom
+    arrays = _wide_fields(W, H, 3) if wide else _flow_fields(W, H, 3)
+    cpu = [torch.from_numpy(a) for a in arrays]
+    ins = [a.to(cuda) for a in cpu]
+    tk.reset_launches()
+    got = tk.integral(*ins)
+    assert tk.LAUNCHES["integral"] == 1 and sum(tk.LAUNCHES.values()) == 1
+    want = tdf.build_integral(*ins)
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+    assert torch.equal(got.cpu().view(torch.int64),
+                       tdf.build_integral(*cpu).view(torch.int64))
 
 
 @pytest.mark.cuda
@@ -138,7 +211,7 @@ def test_cuda_aperture_kernel_matches_plain(cuda, geom, quirk):
     ins = [torch.from_numpy(a).to(cuda) for a in _flow_fields(W, H, seed=3)]
     tk.reset_launches()
     got = tk.aperture(*ins, cfg)
-    assert tk.LAUNCHES["aperture"] == 1
+    assert tk.LAUNCHES["aperture"] == 1 and tk.LAUNCHES["integral"] == 1
     want = tdf.dense_aperture(*ins, cfg)
     for name, g, w in zip(["tvx", "tvy", "scale"], got, want):
         assert torch.equal(g, w), name
@@ -155,7 +228,8 @@ def _band(arr, n, i, h):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k, n_chain, fold_center", [
-    (3, 1, True), (5, 8, True), (3, 3, False), (7, 1, True)])
+    (3, 1, True), (5, 8, True), (3, 3, False), (7, 1, True), (3, 96, True),
+    (5, 96, False)])
 def test_cuda_halo_local_flow_matches_plain(cuda, k, n_chain, fold_center):
     """Halo mode on 1, 2 and 4 bands (320, 160 and 80 rows: the shards of
     1, 2 and 4 ranks): bitwise equal to the plain halo mode and to the

@@ -302,5 +302,6 @@ def test_cpu_wrappers_do_not_count_launches():
     fl, fvx, fvy = _flow_fields(24, 20, seed=1)
     tk.aperture(*(torch.from_numpy(a) for a in (fl, fvx, fvy)),
                 TConfig(width=24, height=20))
+    tk.integral(*(torch.from_numpy(a) for a in (fl, fvx, fvy)))
     assert tk.LAUNCHES == {"local_flow": 0, "local_flow_general": 0,
-                           "aperture": 0}
+                           "aperture": 0, "integral": 0}

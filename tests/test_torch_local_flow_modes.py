@@ -7,8 +7,9 @@
   `dense_local_flow` run eagerly under `jax.disable_jit()` (its jitted
   graph compiles for minutes at k = 7), in both fold modes, and a
   chunk_size=1 engine run at k = 7 against the float64 oracle.
-- The static tile sizing that makes a CUDA run raise, instead of falling
-  back, where no kernel fits.
+- The static tile sizing: the streamed k = 3 and 5 kernels take any
+  chain; the general kernel raises, instead of falling back, where no
+  tile fits.
 
 Tolerances are those of tests/test_torch_kernels.py (candidate ids exact off
 near-ties, accept flips <= 5e-4, float fields within 0.1% / 5% of the
@@ -154,29 +155,48 @@ def test_filter_size_7_engine_matches_oracle():
 
 
 @pytest.mark.parametrize("k, n_chain, rows", [
-    (3, 1, 16), (5, 17, 16), (5, 59, 16), (7, 17, 16), (9, 9, 16),
-    (7, 60, 8), (7, 80, 4), (31, 9, 2)])
+    (3, 1, 8), (5, 17, 4), (5, 59, 4), (5, 60, 4), (3, 100, 8), (7, 17, 16),
+    (9, 9, 16), (7, 60, 8), (7, 80, 4), (31, 9, 2)])
 def test_tile_rows_fit_shared_memory(k, n_chain, rows):
+    """The streamed k = 3 and 5 kernels take any chain at fixed tile rows
+    (their shared memory is a fixed ring); the general kernel takes the
+    most rows whose whole staged chain fits."""
     assert tk.local_flow_tile_rows(k, n_chain) == rows
-    R = 2 * (k // 2)
-    assert (n_chain + 1) * (rows + 2 * R) * (32 + 2 * R) * 4 <= tk.SMEM_BYTES
+    if k in (3, 5):
+        assert tk.local_flow_tile_rows(k, 1) == rows
+    else:
+        R = 2 * (k // 2)
+        assert ((n_chain + 1) * (rows + 2 * R) * (32 + 2 * R) * 4
+                <= tk.SMEM_BYTES)
 
 
-@pytest.mark.parametrize("k, n_chain", [(5, 60), (3, 100), (9, 200)])
+@pytest.mark.parametrize("k, n_chain", [(7, 101), (9, 200)])
 def test_chain_that_fits_no_kernel_raises(k, n_chain):
     with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
         tk.local_flow_tile_rows(k, n_chain)
 
 
 def test_cuda_engine_with_unfit_chain_raises_before_running():
-    """A correction chain of 1 + P*S = 65 surfaces at k = 5 fits no
-    kernel's shared memory: the CUDA engine refuses it when built, rather
+    """A correction chain of 1 + P*S = 129 surfaces at k = 7 fits no tile
+    of the general kernel: the CUDA engine refuses it when built, rather
     than running the plain version; on the CPU the same config runs."""
+    cfg = TConfig(width=64, height=64, filter_size=7, chunk_size=1024,
+                  sub_phases=8, causal_snapshots=16, center_correction=64)
+    assert teng.chain_lengths(cfg) == (16, 129)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
+        teng.FlowEngine(cfg, device="cuda")
+    teng.FlowEngine(cfg, device="cpu")
+
+
+def test_long_chain_passes_the_cuda_engine_check():
+    """At k = 5 the same shape's 65-surface correction chain (past the
+    whole-chain tile the earlier kernel staged) passes the CUDA engine's
+    pre-check: the streamed kernel takes it at its fixed tile rows. The
+    card run is tests/test_torch_cuda.py's."""
     cfg = TConfig(width=64, height=64, filter_size=5, chunk_size=1024,
                   sub_phases=4, causal_snapshots=16, center_correction=64)
     assert teng.chain_lengths(cfg) == (16, 65)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
-        teng.FlowEngine(cfg, device="cuda")
+    assert [tk.local_flow_tile_rows(5, n) for n in (16, 65)] == [4, 4]
     teng.FlowEngine(cfg, device="cpu")
 
 
