@@ -18,7 +18,13 @@ Phases, each printed with its result and seconds:
    fidelity preset's 8-surface snapshot chain and on a 96-surface chain;
    its correction mode (fold_center=False) at k = 3 and 5 on chains of 3
    (coarse), 17 (full) and 96 surfaces; the general kernel at k = 7 and 9
-   in both fold modes on chains of 1 and 9; the float64 integral kernel
+   in both fold modes on chains of 1 and 9, at k = 7 on 129 surfaces and
+   at k = 9 on 96 (longer than the whole-chain tile the earlier general
+   kernel staged; the plain version, seconds a call, timed on 3 calls),
+   at k = 7 on the 260 x 346 geometry, and at a run-time radius, k = 11
+   on 9 surfaces (5 slabs of support rows) and k = 21 in correction mode
+   on 3 (14 slabs; the plain version timed on 3 calls), each case with
+   the shape the library reports; the float64 integral kernel
    against the plain integral (also on the CPU), with the cells where
    CUDA's own innermost-dimension cumsum departs from the sequential order;
    the aperture pass (integral and pool; the pool's own device time
@@ -28,7 +34,8 @@ Phases, each printed with its result and seconds:
    bands (320, 160 and 80 rows: the shards of `--devices 1`, 2 and 4):
    local flow on each band plus its R exchanged rows (cut from the
    zero-padded surfaces) at k = 3 and 5 on chains of 1 and 8, correction
-   mode on a 3-surface chain and the general kernel at k = 7; aperture on
+   mode on a 3-surface chain at k = 3, 5 and 7 and the general kernel at
+   k = 7 on one surface; aperture on
    each band of the float64 integral (0 above the sensor, its total row
    below). Each bitwise against its plain halo mode on the card and
    against the rows of the whole-sensor kernel's output, with the same
@@ -37,8 +44,10 @@ Phases, each printed with its result and seconds:
    (farms_tpu_torch/pipeline/oracle.py) on a translating-bar stream;
 5. the main paths through the CLI on a 1,048,576-event stream (320 x 320,
    5e6 ev/s, seed 0): the `benchmark` preset, the `fidelity` preset
-   (snapshot chain, rank-2 correction) and the benchmark preset at
-   --filtersize 7 on the first 262,144 events. For each, the kernels'
+   (snapshot chain, rank-2 correction), the benchmark preset at
+   --filtersize 7 on the first 262,144 events and the fidelity preset at
+   --filtersize 7 on the first 131,072 (the general kernel on the snapshot
+   chain and in correction mode). For each, the kernels'
    launch counts over that run (every count is set to 0 just before it)
    and the same valid flags and scale ids as the same CLI run on the CPU
    (plain versions) on every event;
@@ -58,8 +67,9 @@ The line before the last is the card's nvidia-smi name and power limit;
 the one before it a JSON summary of the kernels, with each kernel's bound
 (the larger of the bytes it must move over 3.35 TB/s and its operations
 over 67 TFLOP/s in f32 and 34 TFLOP/s in f64, the H100 SXM's data-sheet
-peaks) for its whole-sensor case, (`halo_*`) for one 80-row band and
-(`halo1_*`) for the one band of 320 rows;
+peaks) and its share (bound over device time) for its whole-sensor case,
+(`halo_*`) for one 80-row band and (`halo1_*`) for the one band of 320
+rows;
 the last line is {"ok": true, "device": {...}}. Any failure raises and
 exits non-zero, and without CUDA the script exits non-zero before
 printing any result.
@@ -84,7 +94,9 @@ import numpy as np
 SENSOR = 320
 STREAM_EVENTS = 1 << 20
 K7_EVENTS = 1 << 18
+K7_FIDELITY_EVENTS = 1 << 17
 TIMING_REPS = 30
+LONG_PLAIN_REPS = 3         # plain calls timed on the long chains
 LOCAL_NAMES = ("accept", "a", "b", "dtdp", "cand")
 APERTURE_NAMES = ("tvx", "tvy", "scale")
 FLOW_COLUMNS = ("x", "y", "t", "pol", "r_true", "theta_true", "vx", "vy",
@@ -167,6 +179,13 @@ def _device_ms(fn, kernel: str | None = None, reps: int = TIMING_REPS):
 
 def _fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def _share(r: dict, prefix: str = ""):
+    """Bound over device time of a result entry (None where the device
+    time was not measured)."""
+    ms = r.get(f"{prefix}device_ms")
+    return None if not ms else r[f"{prefix}bound_ms"] / ms
 
 
 def _bound(n_bytes: float, f32_ops: float, f64_ops: float = 0.0) -> dict:
@@ -317,7 +336,8 @@ def check_kernels(dev):
     errs = {name: 0.0 for name in kernels.LAUNCHES}
     results = {}
 
-    def local_case(label, name, cfg, chain, center, fold):
+    def local_case(label, name, cfg, chain, center, fold,
+                   plain_reps=TIMING_REPS):
         t0 = time.perf_counter()
         kernels.reset_launches()
         got = kernels.local_flow(chain, center, cfg, fold_center=fold)
@@ -333,12 +353,13 @@ def check_kernels(dev):
         ms = _median_ms(run)
         device_ms = _device_ms(run)
         plain_ms = _median_ms(lambda: plain.local_flow_core(
-            chain, center, cfg, fold_center=fold))
+            chain, center, cfg, fold_center=fold), plain_reps)
         _phase(f"kernel {label}", t0,
-               f"equal to plain at {SENSOR}x{SENSOR} (accept "
+               f"equal to plain at {cfg.width}x{cfg.height} (accept "
                f"{int(got[0].sum())}, windows {int((got[4] >= 0).sum())}); "
                f"max_abs_err {err}; kernel {ms:.4f} ms (device "
-               f"{_fmt_ms(device_ms)}), plain {plain_ms:.4f} ms")
+               f"{_fmt_ms(device_ms)}), plain {plain_ms:.4f} ms; shape "
+               f"{kernels.local_flow_shape(cfg.filter_size)}")
         return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms)
 
     def dev_tensors(*arrays):
@@ -357,21 +378,29 @@ def check_kernels(dev):
                 times, **local_flow_bound(3, 1, SENSOR, SENSOR, SENSOR))
     # the fidelity slice's modes: the per-phase pass on its 8-surface
     # snapshot chain and correction on the coarse (3) and full (17) chains
-    # at k = 3 and 5; the general kernel in both fold modes
-    # and a 96-surface chain in both modes, longer than a whole-chain tile
-    # of shared memory holds
-    cases = [(k, n, True) for k in (3, 5) for n in (8, 96)]
-    cases += [(k, n, False) for k in (3, 5) for n in (3, 17, 96)]
-    cases += [(k, n, fold) for k in (7, 9) for n in (1, 9)
+    # at k = 3 and 5; the general kernel in both fold modes; chains longer
+    # than a whole-chain tile of shared memory held (96 surfaces at k = 3,
+    # 5 and 9, 129 at k = 7) in both modes; the general kernel at
+    # 260 x 346, and at a run-time radius, the support in slabs of rows
+    # (5 at k = 11, 14 at k = 21)
+    cases = [(k, n, True, SENSOR, SENSOR) for k in (3, 5) for n in (8, 96)]
+    cases += [(k, n, False, SENSOR, SENSOR) for k in (3, 5)
+              for n in (3, 17, 96)]
+    cases += [(k, n, fold, SENSOR, SENSOR) for k, n in
+              ((7, 1), (7, 9), (9, 1), (9, 9), (7, 129), (9, 96))
               for fold in (True, False)]
-    for k, n, fold in cases:
-        cfg = FlowConfig(width=SENSOR, height=SENSOR, filter_size=k)
-        surfs, t_post, rank2 = _stamp_chain(SENSOR, SENSOR, 100 + k + n, n)
+    cases += [(7, 9, True, 260, 346), (11, 9, True, SENSOR, SENSOR),
+              (21, 3, False, SENSOR, SENSOR)]
+    for k, n, fold, W, H in cases:
+        cfg = FlowConfig(width=W, height=H, filter_size=k)
+        surfs, t_post, rank2 = _stamp_chain(W, H, 100 + k + n, n)
         chain, center = dev_tensors(surfs, t_post if fold else rank2)
         name = "local_flow" if k in (3, 5) else "local_flow_general"
-        times = local_case(f"{name} k={k} chain={n} fold_center={fold}",
-                           name, cfg, chain, center, fold)
-        if (k, n, fold) == (7, 1, True):
+        times = local_case(
+            f"{name} k={k} chain={n} fold_center={fold} {W}x{H}", name, cfg,
+            chain, center, fold,
+            LONG_PLAIN_REPS if k > 9 or (k > 5 and n > 9) else TIMING_REPS)
+        if (k, n, fold, W) == (7, 1, True, SENSOR):
             results["local_flow_general"] = dict(
                 times, **local_flow_bound(7, 1, SENSOR, SENSOR, SENSOR))
 
@@ -448,6 +477,7 @@ def check_kernels(dev):
                f"{_fmt_ms(pool_ms)}), plain {plain_ms:.4f} ms")
     for name, r in results.items():
         r["max_abs_err"] = errs[name]
+        r["share"] = _share(r)
     return results
 
 
@@ -524,7 +554,7 @@ def check_halo_kernels(dev):
         results[name] = entry
 
     cases = [(k, n, True) for k in (3, 5) for n in (1, 8)]
-    cases += [(k, 3, False) for k in (3, 5)] + [(7, 1, True)]
+    cases += [(k, 3, False) for k in (3, 5, 7)] + [(7, 1, True)]
     for k, n, fold in cases:
         cfg = FlowConfig(width=SENSOR, height=SENSOR, filter_size=k)
         R = cfg.support_radius
@@ -579,6 +609,8 @@ def check_halo_kernels(dev):
         cfg.num_scales, rows, SENSOR, rows + 2 * A + 1))
     for name, r in results.items():
         r["max_abs_err"] = errs[name]
+        r["share"] = _share(r)
+        r["1_share"] = _share(r, "1_")
     return results
 
 
@@ -716,25 +748,30 @@ def _preset_launches(steps):
 
 
 def check_main_paths(base, work):
-    """Phase 5: the benchmark and fidelity presets and --filtersize 7
-    through the CLI, card vs CPU. Returns ({label: (launches, rate)},
-    {preset: copy of the card's output file})."""
+    """Phase 5: the benchmark and fidelity presets, and both at
+    --filtersize 7 on a cut stream, through the CLI, card vs CPU. Returns
+    ({label: (launches, rate)}, {preset: copy of the card's output
+    file})."""
     steps = STREAM_EVENTS // 131072          # micro-steps at chunk 131072
-    k7_steps = K7_EVENTS // 131072
     results, card_files = {}, {}
     for preset, want in _preset_launches(steps).items():
         card_files[preset] = os.path.join(work, f"single_{preset}.txt")
         results[preset] = _cli_path(preset, _stream_argv(base, preset), base,
                                     STREAM_EVENTS, want, card_files[preset])
-    # one call of exactly the stream's steps (a call runs --steps-per-scan
-    # steps, padding the last ones)
-    results["benchmark k=7"] = _cli_path(
-        "benchmark k=7", _stream_argv(base, "benchmark") + [
-            "--filtersize", "7", "--numEvents", str(K7_EVENTS),
-            "--steps-per-scan", str(k7_steps)],
-        base, K7_EVENTS, {"local_flow_general": 2 * k7_steps,
-                          "aperture": 2 * k7_steps,
-                          "integral": 2 * k7_steps})
+    # the general kernel's paths, each one call of exactly the cut
+    # stream's steps (a call runs --steps-per-scan steps, padding the last
+    # ones)
+    for preset, n_events in (("benchmark", K7_EVENTS),
+                             ("fidelity", K7_FIDELITY_EVENTS)):
+        k7_steps = n_events // 131072
+        want = _preset_launches(k7_steps)[preset]
+        want["local_flow_general"] = want.pop("local_flow")
+        label = f"{preset} k=7"
+        results[label] = _cli_path(
+            label, _stream_argv(base, preset) + [
+                "--filtersize", "7", "--numEvents", str(n_events),
+                "--steps-per-scan", str(k7_steps)],
+            base, n_events, want)
     return results, card_files
 
 

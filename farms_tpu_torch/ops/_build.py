@@ -26,12 +26,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # chain, S, fold_center, center, band_rows, rows, halo, row_offset,
-    # W, H, Ha, filter_size, tile_rows, min_evts, det_threshold, neg_ts,
-    # accept, a, b, dtdp, cand, stream
+    # W, H, Ha, filter_size, min_evts, det_threshold, neg_ts, accept, a, b,
+    # dtdp, cand, stream
     "farms_local_flow": (_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _F, _F, _P, _P, _P, _P, _P, _P),
+                         _I, _F, _F, _P, _P, _P, _P, _P, _P),
+    # filter_size, tile_rows, slab_rows, shared_bytes (out)
+    "farms_local_flow_shape": (_I, _IP, _IP, _IP),
     # integ, integ_rows, rows, halo, Ha, y_clip, n_scales, jump, flow_vx,
     # flow_vy, tvx, tvy, scale, stream
     "farms_aperture": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,

@@ -4,10 +4,9 @@ Counterpart of `farms_tpu.ops.pallas.kernels`. The device of the input
 decides the path: a CPU tensor runs the plain PyTorch version
 (ops/dense_flow.py), a CUDA tensor launches the kernel
 (csrc/local_flow.cu: its streamed k = 3 and 5 instances, or the general
-kernel for any other odd k; csrc/aperture.cu: the float64 integral and the
-pool) or raises, also where the general kernel's staged tile of a filter
-size and chain fits no shared memory. There is no fallback between the
-two.
+kernel for any other odd k, each for any chain length; csrc/aperture.cu:
+the float64 integral and the pool) or raises. There is no fallback
+between the two.
 
 Each wrapper counts its kernel launches in `LAUNCHES` (only where it
 launches; plain-path calls do not count), so a run can show that its main
@@ -27,15 +26,6 @@ from farms_tpu_torch.ops.dense_flow import (aperture_y_clip, build_integral,
 
 LAUNCHES = {"local_flow": 0, "local_flow_general": 0, "aperture": 0,
             "integral": 0}
-
-# shared memory one block may use on sm_90 (227 KB)
-SMEM_BYTES = 232448
-# tile columns of the local-flow kernels (one warp along y), the tile rows
-# of the streamed k = 3 and 5 instances (csrc/local_flow.cu Streamed), and
-# the most tile rows of the general kernel
-_TILE_COLS = 32
-_STREAMED_ROWS = {3: 8, 5: 4}
-_TILE_ROWS = 16
 
 
 def reset_launches() -> None:
@@ -64,26 +54,21 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: cudaError_t {rc}")
 
 
-def local_flow_tile_rows(filter_size: int, n_chain: int) -> int:
-    """Tile rows of the local-flow kernel for this filter size and chain.
-
-    The streamed k = 3 and 5 instances bring the chain through a fixed
-    ring of shared memory, so any chain fits their fixed tile rows. The
-    general kernel stages its tile plus a 2R halo of the n_chain chain
-    surfaces and the center in shared memory at once and takes the most
-    rows of 16, 8, 4, 2, 1 that fit; it raises NotImplementedError where
-    none fits (ROADMAP Queue 2 item 4).
-    """
-    if filter_size in _STREAMED_ROWS:
-        return _STREAMED_ROWS[filter_size]
-    R = 2 * (filter_size // 2)
-    for tx in (_TILE_ROWS, 8, 4, 2, 1):
-        if (n_chain + 1) * (tx + 2 * R) * (_TILE_COLS + 2 * R) * 4 <= SMEM_BYTES:
-            return tx
-    raise NotImplementedError(
-        f"no local-flow kernel fits k = {filter_size} with a chain of "
-        f"{n_chain} surfaces in {SMEM_BYTES} bytes of shared memory "
-        "(ROADMAP Queue 2 item 4)")
+def local_flow_shape(filter_size: int) -> dict:
+    """How the local-flow kernel runs at this filter size, as
+    csrc/local_flow.cu decides it (farms_local_flow_shape): `tile_rows`
+    (a block is 32 x tile_rows threads), `slab_rows`, the general kernel's
+    support rows per pass over the chain (0 for the streamed k = 3 and 5
+    kernels), and `shared_bytes` of one block. None depends on the chain.
+    Builds the kernel library on first use (needs nvcc, not a card)."""
+    out = [ctypes.c_int() for _ in range(3)]
+    rc = _build.load().farms_local_flow_shape(
+        filter_size, *(ctypes.byref(o) for o in out))
+    if rc != 0:
+        raise ValueError(f"no local-flow kernel for filter size "
+                         f"{filter_size}: cudaError_t {rc}")
+    return dict(zip(("tile_rows", "slab_rows", "shared_bytes"),
+                    (o.value for o in out)))
 
 
 def _band_rows(t: torch.Tensor, name: str, cfg: FlowConfig, halo: int,
@@ -134,7 +119,7 @@ def local_flow(chain: torch.Tensor, center: torch.Tensor, cfg: FlowConfig,
                          f"{tuple(chain.shape)}")
     _check(chain, "chain", torch.int32, (chain.shape[0], Xb, Ha), dev)
     S = chain.shape[0]
-    tile_rows = local_flow_tile_rows(cfg.filter_size, S)
+    k = cfg.filter_size
     lib = _build.load()
     accept = torch.empty((rows, Ha), dtype=torch.int32, device=dev)
     a = torch.empty((rows, Ha), dtype=torch.float32, device=dev)
@@ -143,12 +128,11 @@ def local_flow(chain: torch.Tensor, center: torch.Tensor, cfg: FlowConfig,
     cand = torch.empty_like(accept)
     rc = lib.farms_local_flow(
         chain.data_ptr(), S, int(fold_center), center.data_ptr(), Xb, rows,
-        halo, row_offset, cfg.width, cfg.height, Ha, cfg.filter_size,
-        tile_rows, cfg.min_evts_on_plane, cfg.det_threshold, -cfg.ts_to_sec,
+        halo, row_offset, cfg.width, cfg.height, Ha, k,
+        cfg.min_evts_on_plane, cfg.det_threshold, -cfg.ts_to_sec,
         accept.data_ptr(), a.data_ptr(), b.data_ptr(), dtdp.data_ptr(),
         cand.data_ptr(), _stream(dev))
-    name = ("local_flow" if cfg.filter_size in (3, 5)
-            else "local_flow_general")
+    name = "local_flow" if k in (3, 5) else "local_flow_general"
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return accept, a, b, dtdp, cand

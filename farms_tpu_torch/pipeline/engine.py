@@ -230,15 +230,6 @@ def _coarse(cfg: FlowConfig, P: int) -> int:
     return A if A and A < P and P % A == 0 else 0
 
 
-def chain_lengths(cfg: FlowConfig) -> tuple[int, int]:
-    """Chain surfaces of the per-phase local-flow pass and of the
-    correction pass (0 without correction) at a chunk_size micro-step:
-    the phase's pre-scatter surface plus its S - 1 snapshot boundaries,
-    and the chunk's start surface plus its linked sub-groups' ends."""
-    P, S, links = _phasing(cfg.chunk_size, cfg)
-    return S, 1 + P * len(links) if cfg.center_correction else 0
-
-
 def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig):
     """Process one micro-batch of events against the carried surfaces.
 
@@ -435,13 +426,6 @@ class FlowEngine:
     def __init__(self, cfg: FlowConfig, device="cuda"):
         require_slice(cfg)
         device = torch.device(device)
-        if device.type == "cuda":
-            # raise now, not mid-stream, where a chain fits no tile of the
-            # general kernel (k >= 7; the k = 3 and 5 kernels stream any
-            # chain)
-            for n in chain_lengths(cfg):
-                if n:
-                    kernels.local_flow_tile_rows(cfg.filter_size, n)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not "
                                "available")

@@ -14,8 +14,14 @@ on one card, in turns:
     python scripts/torch_kernel_times.py --tree . --label new
     python scripts/torch_kernel_times.py --tree <parent> --label parent
 
-`--ptxas` also prints each kernel's registers and spill bytes from
-`nvcc -Xptxas -v`. Prints one JSON line per case and a summary line.
+`--ptxas` also prints each kernel instance's registers, spill bytes and
+static shared memory from `nvcc -Xptxas -v`, and, where the tree has
+ops/kernels.local_flow_shape, the local-flow kernel's tile rows, slab
+rows and shared bytes (the general kernel's ring and slots are dynamic
+shared memory) at each filter size timed. `--match REGEX` times only the
+cases whose name matches. Prints one JSON line per case and a summary
+line; a case that the tree refuses (NotImplementedError) prints what it
+raised.
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -43,7 +49,8 @@ def _helpers():
 
 
 def ptxas(_build) -> list:
-    """Registers and spill bytes of every kernel, from -Xptxas -v."""
+    """Registers, spill bytes and static shared memory of every kernel
+    instance, from -Xptxas -v."""
     out = []
     nvcc = _build._nvcc()
     filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
@@ -66,9 +73,12 @@ def ptxas(_build) -> list:
                 spill = int(m.group(1)) + int(m.group(2))
             m = re.search(r"Used (\d+) registers", line)
             if m and name:
+                smem = re.search(r"(\d+) bytes smem", line)
                 out.append({"source": src, "kernel": name,
                             "registers": int(m.group(1)),
-                            "spill_bytes": spill})
+                            "spill_bytes": spill,
+                            "static_smem_bytes":
+                                int(smem.group(1)) if smem else 0})
                 name = None
     return out
 
@@ -78,6 +88,7 @@ def main() -> int:
     p.add_argument("--tree", default=ROOT)
     p.add_argument("--label", default="")
     p.add_argument("--ptxas", action="store_true")
+    p.add_argument("--match", default="")
     args = p.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -98,6 +109,11 @@ def main() -> int:
     if args.ptxas:
         for row in ptxas(_build):
             print(json.dumps({"tree": label, "ptxas": row}), flush=True)
+        if hasattr(kernels, "local_flow_shape"):
+            for k in (3, 5, 7, 9, 11, 21):
+                print(json.dumps({"tree": label, "filter_size": k,
+                                  "shape": kernels.local_flow_shape(k)}),
+                      flush=True)
 
     def T(*arrays):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -106,6 +122,8 @@ def main() -> int:
     rows = []
 
     def case(name, fn, pool=False):
+        if not re.search(args.match, name):
+            return
         try:
             fn()
         except NotImplementedError as e:
@@ -118,15 +136,29 @@ def main() -> int:
         print(json.dumps({"tree": label, **row}), flush=True)
 
     # phase 2: the whole-sensor local-flow modes
-    chains = [(k, n, True) for k in (3, 5) for n in (1, 8, 96)]
-    chains += [(k, n, False) for k in (3, 5) for n in (3, 17, 96)]
-    chains += [(k, n, fold) for k in (7, 9) for n in (1, 9)
+    chains = [(k, n, True, SENSOR, SENSOR) for k in (3, 5)
+              for n in (1, 8, 96)]
+    chains += [(k, n, False, SENSOR, SENSOR) for k in (3, 5)
+               for n in (3, 17, 96)]
+    chains += [(k, n, fold, SENSOR, SENSOR) for k, n in
+               ((7, 1), (7, 9), (9, 1), (9, 9), (7, 129), (9, 96))
                for fold in (True, False)]
-    for k, n, fold in chains:
-        cfg = FlowConfig(width=SENSOR, height=SENSOR, filter_size=k)
-        surfs, t_post, rank2 = cs._stamp_chain(SENSOR, SENSOR, 100 + k + n, n)
+    # the general kernel at 260 x 346, and on sensors a few rows short of
+    # 320 whose grids fill the card's block slots (two blocks per SM) a
+    # whole number of times: 790 blocks at k = 7 (2.99 rounds of 264, 800
+    # at 320 rows), 1560 at k = 9 (5.91, 1600 at 320)
+    chains += [(7, 9, True, 260, 346), (7, 1, True, 316, 320),
+               (9, 1, True, 312, 320)]
+    # the general kernel at a run-time radius, the support in slabs of
+    # rows (5 at k = 11, 14 at k = 21)
+    chains += [(k, n, fold, SENSOR, SENSOR) for k in (11, 21)
+               for n in (1, 9) for fold in (True, False)]
+    for k, n, fold, W, H in chains:
+        cfg = FlowConfig(width=W, height=H, filter_size=k)
+        surfs, t_post, rank2 = cs._stamp_chain(W, H, 100 + k + n, n)
         chain, center = T(surfs, t_post if fold else rank2)
-        case(f"local_flow k={k} chain={n} fold_center={fold}",
+        geom = "" if (W, H) == (SENSOR, SENSOR) else f" {W}x{H}"
+        case(f"local_flow k={k} chain={n} fold_center={fold}{geom}",
              lambda cfg=cfg, chain=chain, center=center, fold=fold:
              kernels.local_flow(chain, center, cfg, fold_center=fold))
 
@@ -143,7 +175,7 @@ def main() -> int:
     # phase 3: halo modes, band 1 of 4 (80 rows) and the one 320-row band
     for k, n, fold in [(3, 1, True), (3, 8, True), (5, 1, True),
                        (5, 8, True), (3, 3, False), (5, 3, False),
-                       (7, 1, True)]:
+                       (7, 1, True), (7, 3, False)]:
         cfg = FlowConfig(width=SENSOR, height=SENSOR, filter_size=k)
         R = cfg.support_radius
         surfs, t_post, rank2 = cs._stamp_chain(SENSOR, SENSOR, 200 + k + n, n)

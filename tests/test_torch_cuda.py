@@ -100,14 +100,25 @@ def _chain(W, H, seed, n):
     (3, 96, True, (320, 320)), (5, 96, False, (320, 320)),
     (3, 8, True, (260, 346)), (5, 17, False, (260, 346)),
     (7, 1, True, (320, 320)), (7, 9, False, (320, 320)),
-    (9, 9, True, (320, 320)), (9, 1, False, (320, 320))])
+    (9, 9, True, (320, 320)), (9, 1, False, (320, 320)),
+    (7, 9, True, (260, 346)), (9, 96, False, (320, 320)),
+    (11, 9, True, (320, 320)), (11, 3, False, (320, 320)),
+    (21, 9, False, (320, 320)), (21, 3, True, (260, 346)),
+    (31, 3, True, (128, 128)), (31, 1, False, (128, 128)),
+    (59, 1, False, (120, 118)), (89, 1, True, (180, 178)),
+    (181, 1, True, (40, 36))])
 def test_cuda_local_flow_modes_match_plain(cuda, k, n_chain, fold_center,
                                            geom):
     """The streamed k = 3/5 kernels on the fidelity preset's 8-surface
     snapshot chain and on 96 surfaces, also on the 260 x 346 geometry of
     the y-clamp quirk (W != H), correction mode (fold_center=False) of
     both local-flow kernels, and the general kernel (k >= 7) in both
-    modes, bitwise against plain."""
+    modes, also at 260 x 346 and on 96 surfaces, bitwise against plain.
+    Past k = 9 its radius comes at run time, the support in slabs of rows:
+    5 at k = 11, 14 at k = 21 and 61 at k = 31 (the inliers refold a slab,
+    or skip one that no winner of a block reaches), with two blocks to an
+    SM at k = 59, one at k = 89, and a one-row tile at k = 181 (whose
+    sensor holds no window: candidate 0's fit is compared)."""
     W, H = geom
     cfg = TConfig(width=W, height=H, filter_size=k)
     chain, center = _chain(W, H, seed=10 + k, n=n_chain)
@@ -128,50 +139,153 @@ def test_cuda_local_flow_modes_match_plain(cuda, k, n_chain, fold_center,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k, n_chain", [(5, 60), (3, 100)])
+@pytest.mark.parametrize("k, n_chain", [(5, 60), (3, 100), (7, 129),
+                                        (9, 96), (11, 129), (21, 40)])
 def test_cuda_long_chain_matches_plain(cuda, k, n_chain):
     """Chains past what a whole-chain tile of shared memory held (59
-    surfaces at k = 5, 79 at k = 3) stream through the k = 3/5 kernels,
-    bitwise equal to plain in both fold modes."""
+    surfaces at k = 5, 79 at k = 3, 100 at k = 7, 70 at k = 9, 52 at
+    k = 11, 18 at k = 21) stream through the local-flow kernels, bitwise
+    equal to plain in both fold modes; at k = 11 and 21 once per slab."""
     cfg = TConfig(width=64, height=64, filter_size=k)
     chain, center = _chain(64, 64, seed=30 + k, n=n_chain)
     chain = torch.from_numpy(chain).to(cuda)
+    name = "local_flow" if k in (3, 5) else "local_flow_general"
     for fold, c in ((False, center), (True, chain[-1].cpu().numpy())):
         c = torch.from_numpy(np.ascontiguousarray(c)).to(cuda)
         tk.reset_launches()
         got = tk.local_flow(chain, c, cfg, fold_center=fold)
-        assert tk.LAUNCHES["local_flow"] == 1
+        assert tk.LAUNCHES[name] == 1
         want = tdf.local_flow_core(chain, c, cfg, fold_center=fold)
         for label, g, w in zip(["accept", "a", "b", "dtdp", "cand"], got,
                                want):
             assert torch.equal(g, w), (fold, label)
 
 
-@pytest.mark.cuda
-def test_cuda_engine_with_a_65_surface_chain_equals_cpu(cuda):
-    """The k = 5 engine whose correction chain has 65 surfaces (refused
-    when the kernel staged the whole chain) runs on the card and gives the
-    CPU engine's valid flags and scale ids on every event, and its flows
-    within 1e-5 relative (the trig tail's float ops round differently on
-    the two devices)."""
-    from farms_tpu_torch.events.io import synthetic_random_events
-    from farms_tpu_torch.pipeline.engine import FlowEngine, chain_lengths
+# shared memory one block may use on sm_90 (227 KB), and the most where two
+# or three blocks share an SM (228 KB an SM, 1 KB reserved for each block)
+SMEM_BYTES = 232448
+SMEM_HALF = 233472 // 2 - 1024
+SMEM_THIRD = 233472 // 3 - 1024
 
-    cfg = TConfig(width=64, height=64, filter_size=5, chunk_size=1024,
-                  sub_phases=4, causal_snapshots=16, center_correction=64)
-    assert chain_lengths(cfg) == (16, 65)
+
+def _general_bytes(k, rows, slab):
+    """The general kernel's shared memory, restated: a ring of 8 surfaces
+    of (rows + slab - 1) x (32 + 2R) and a 4-byte slot per thread and
+    offset of slab x (2R + 1); no term holds the chain's length."""
+    R = 2 * (k // 2)
+    return 4 * (8 * (rows + slab - 1) * (32 + 2 * R)
+                + slab * (2 * R + 1) * rows * 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, rows, slabs, limit", [
+    (3, 8, 0, 0), (5, 4, 0, 0), (7, 4, 1, SMEM_HALF), (9, 2, 1, SMEM_HALF),
+    (11, 4, 5, SMEM_THIRD), (15, 4, 8, SMEM_THIRD), (17, 4, 11, SMEM_THIRD),
+    (19, 4, 13, SMEM_THIRD), (21, 4, 14, SMEM_THIRD),
+    (31, 4, 61, SMEM_THIRD), (57, 4, 113, SMEM_THIRD),
+    (59, 4, 117, SMEM_HALF), (87, 4, 173, SMEM_HALF),
+    (89, 4, 89, SMEM_BYTES), (179, 4, 357, SMEM_BYTES),
+    (181, 1, 121, SMEM_BYTES)])
+def test_tile_rows_fit_shared_memory(cuda, k, rows, slabs, limit):
+    """The shape the kernel library reports for each filter size: every
+    instance takes any chain at fixed tile rows, since the streamed
+    k = 3 and 5 kernels and the general kernel keep a fixed ring of
+    surfaces. The general kernel folds its support in slabs of rows: the
+    most whose ring and slots fit `limit`, the first of three blocks to an
+    SM (a run-time radius), two (k = 7 and 9, the whole support in one
+    slab; a run-time radius past k = 57) and all 227 KB (past k = 87)
+    that one support row fits; past k = 179 a one-row tile."""
+    shape = tk.local_flow_shape(k)
+    R = 2 * (k // 2)
+    assert shape["tile_rows"] == rows
+    if k in (3, 5):   # four ring slots of the tile and its halo
+        assert shape["slab_rows"] == 0
+        assert shape["shared_bytes"] == 16 * (rows + 2 * R) * (32 + 2 * R)
+        return
+    side = 2 * R + 1
+    slab = shape["slab_rows"]
+    assert -(-side // slab) == slabs
+    if k in (7, 9):
+        assert slab == side
+    assert shape["shared_bytes"] == _general_bytes(k, rows, slab) <= limit
+    if slab < side:
+        assert _general_bytes(k, rows, slab + 1) > limit
+    tighter = [t for t in (SMEM_THIRD, SMEM_HALF, SMEM_BYTES) if t < limit]
+    if k > 9 and tighter:     # a run-time radius takes the tightest fit
+        assert _general_bytes(k, 4, 1) > tighter[-1]
+    if rows == 1:
+        assert _general_bytes(k, 4, 1) > SMEM_BYTES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, n_chain", [(7, 101), (9, 200)])
+def test_long_chain_sizes_like_any_other(cuda, k, n_chain):
+    """Chains that no whole-chain tile held (past 100 surfaces at k = 7,
+    70 at k = 9) size like any other: one slab, the instance's tile rows,
+    and shared memory below what staging the chain alone would take."""
+    shape = tk.local_flow_shape(k)
+    R = 2 * (k // 2)
+    assert shape["slab_rows"] == 2 * R + 1
+    assert shape["shared_bytes"] <= SMEM_HALF
+    assert ((n_chain + 1) * (shape["tile_rows"] + 2 * R) * (32 + 2 * R) * 4
+            > SMEM_BYTES)
+    with pytest.raises(ValueError, match="filter size 8"):
+        tk.local_flow_shape(8)
+
+
+def _engines_agree(cfg, device, n_chain):
+    """The engine on the card gives the CPU engine's valid flags and scale
+    ids on every event of a random stream, and its flows within 1e-5
+    relative (the trig tail's float ops round differently on the two
+    devices); its correction pass ran on an n_chain-surface chain."""
+    from farms_tpu_torch.events.io import synthetic_random_events
+    from farms_tpu_torch.pipeline.engine import FlowEngine
+
     ev = synthetic_random_events(4096, width=64, height=64, rate_hz=2e6,
                                  seed=5)
     want = FlowEngine(cfg, device="cpu").process(ev)
+    seen = []
+    local_flow = tk.local_flow
+
+    def recording(chain, *a, **kw):
+        seen.append(chain.shape[0])
+        return local_flow(chain, *a, **kw)
+
     tk.reset_launches()
-    got = FlowEngine(cfg, device=cuda).process(ev)
-    assert tk.LAUNCHES["local_flow"] > 0 and tk.LAUNCHES["integral"] > 0
+    tk.local_flow = recording
+    try:
+        got = FlowEngine(cfg, device=device).process(ev)
+    finally:
+        tk.local_flow = local_flow
+    name = "local_flow" if cfg.filter_size in (3, 5) else "local_flow_general"
+    assert tk.LAUNCHES[name] > 0 and tk.LAUNCHES["integral"] > 0
+    assert max(seen) == n_chain
     np.testing.assert_array_equal(got.r_local > 0, want.r_local > 0)
     np.testing.assert_array_equal(got.scale, want.scale)
     assert (want.r_local > 0).sum() > 20
     for col in ("vx", "vy", "r_local", "r_true"):
         np.testing.assert_allclose(getattr(got, col), getattr(want, col),
                                    rtol=1e-5, atol=1e-6, err_msg=col)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_with_a_65_surface_chain_equals_cpu(cuda):
+    """The k = 5 engine whose correction chain has 65 surfaces (refused
+    when the kernel staged the whole chain) runs on the card and gives the
+    CPU engine's results."""
+    cfg = TConfig(width=64, height=64, filter_size=5, chunk_size=1024,
+                  sub_phases=4, causal_snapshots=16, center_correction=64)
+    _engines_agree(cfg, cuda, 65)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_with_a_129_surface_chain_equals_cpu(cuda):
+    """The k = 7 engine whose correction chain has 129 surfaces (refused
+    when the general kernel staged the whole chain) runs on the card and
+    gives the CPU engine's results."""
+    cfg = TConfig(width=64, height=64, filter_size=7, chunk_size=1024,
+                  sub_phases=8, causal_snapshots=16, center_correction=64)
+    _engines_agree(cfg, cuda, 129)
 
 
 def _wide_fields(W, H, seed):
@@ -229,7 +343,8 @@ def _band(arr, n, i, h):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k, n_chain, fold_center", [
     (3, 1, True), (5, 8, True), (3, 3, False), (7, 1, True), (3, 96, True),
-    (5, 96, False)])
+    (5, 96, False), (7, 3, False), (9, 96, True), (11, 3, False),
+    (21, 1, True)])
 def test_cuda_halo_local_flow_matches_plain(cuda, k, n_chain, fold_center):
     """Halo mode on 1, 2 and 4 bands (320, 160 and 80 rows: the shards of
     1, 2 and 4 ranks): bitwise equal to the plain halo mode and to the
@@ -313,6 +428,31 @@ def test_cuda_one_rank_halo_engine_equals_single_engine(cuda, correction):
     got = HaloFlowEngine(cfg, device=cuda).process(ev)
     assert tk.LAUNCHES["local_flow"] > 0 and tk.LAUNCHES["aperture"] > 0
     assert (ref.r_local > 0).sum() > 40
+    for col in ("vx", "vy", "r_local", "theta_local", "r_true", "theta_true",
+                "scale"):
+        np.testing.assert_array_equal(getattr(got, col), getattr(ref, col),
+                                      err_msg=col)
+
+
+@pytest.mark.cuda
+def test_cuda_halo_engine_with_a_129_surface_chain_equals_single_engine(
+        cuda):
+    """The one-rank halo engine at k = 7 with a 129-surface correction
+    chain (every halo mode of the general kernel, no pre-check) gives the
+    single engine's outputs on the card bitwise."""
+    from farms_tpu_torch.events.io import synthetic_random_events
+    from farms_tpu_torch.parallel.halo import HaloFlowEngine
+    from farms_tpu_torch.pipeline.engine import FlowEngine
+
+    cfg = TConfig(width=64, height=64, filter_size=7, chunk_size=1024,
+                  sub_phases=8, causal_snapshots=16, center_correction=64)
+    ev = synthetic_random_events(4096, width=64, height=64, rate_hz=2e6,
+                                 seed=6)
+    ref = FlowEngine(cfg, device=cuda).process(ev)
+    tk.reset_launches()
+    got = HaloFlowEngine(cfg, device=cuda).process(ev)
+    assert tk.LAUNCHES["local_flow_general"] > 0
+    assert (ref.r_local > 0).sum() > 20
     for col in ("vx", "vy", "r_local", "theta_local", "r_true", "theta_true",
                 "scale"):
         np.testing.assert_array_equal(getattr(got, col), getattr(ref, col),

@@ -74,13 +74,16 @@ def _port_halo(chain, center, tc, fold, R, row0):
 
 
 @pytest.mark.parametrize("k, fold", [(3, True), (5, True), (3, False),
-                                     (5, False), (7, True), (7, False)])
+                                     (5, False), (7, True), (7, False),
+                                     (11, True), (11, False)])
 def test_halo_local_flow_matches_jax_dense_halo(k, fold):
     """Every shard of 4 (row_offset 0, 16, 32, 48) against the JAX dense
-    halo mode; k = 7 on a 24 x 20 sensor in 2 shards, eagerly."""
-    W, H, n = (64, 64, 4) if k < 7 else (24, 20, 2)
+    halo mode; k = 7 on a 24 x 20 sensor and k = 11 (a run-time radius in
+    the general kernel) on 24 x 22, each in 2 shards, eagerly."""
+    W, H, n = {3: (64, 64, 4), 5: (64, 64, 4), 7: (24, 20, 2),
+               11: (24, 22, 2)}[k]
     kw = dict(width=W, height=H, filter_size=k,
-              min_evts_on_plane={3: 5, 5: 3, 7: 8}[k])
+              min_evts_on_plane={3: 5, 5: 3, 7: 8, 11: 8}[k])
     jc, tc = JConfig(**kw), TConfig(**kw)
     R = tc.support_radius
     chain, center = _local_case(W, H, k, fold, seed=60 + k + fold)
@@ -99,13 +102,14 @@ def test_halo_local_flow_matches_jax_dense_halo(k, fold):
                                  f"halo k{k} fold={fold} shard {i}/{n}")
 
 
-@pytest.mark.parametrize("k", [3, 5, 7])
+@pytest.mark.parametrize("k", [3, 5, 7, 11, 19])
 @pytest.mark.parametrize("fold", [True, False])
 def test_halo_local_flow_equals_whole_sensor_rows(k, fold):
     """A shard's band holds the values the whole-sensor zero pad reads, in
     the same order: outputs equal the whole-sensor rows bitwise, also with
     a halo deeper than R and over a padded array (width 66 in 4 shards of
-    17 rows, pad rows never written)."""
+    17 rows, pad rows never written); at k = 19 the halo (R = 18) is
+    deeper than a shard."""
     W, H = 66, 40
     tc = TConfig(width=W, height=H, filter_size=k, min_evts_on_plane=5)
     R = tc.support_radius

@@ -173,10 +173,11 @@ def test_local_flow_snapshot_chain_matches_jax_dense():
                for x, y in zip(base, out))
 
 
-@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("k", [3, 5, 7, 9, 11, 19])
 def test_local_flow_stamp_shift_invariance(k):
     """Outputs depend only on stamp differences: shifting every stamp by
-    2^31 + delta (all stamp1 values wrap negative) changes nothing."""
+    2^31 + delta (all stamp1 values wrap negative) changes nothing; also
+    at the general kernel's sizes (k >= 7, up to a support of 37 x 37)."""
     W, H = 48, 40
     tc = TConfig(width=W, height=H, filter_size=k)
     rng = np.random.default_rng(4)

@@ -7,9 +7,10 @@
   `dense_local_flow` run eagerly under `jax.disable_jit()` (its jitted
   graph compiles for minutes at k = 7), in both fold modes, and a
   chunk_size=1 engine run at k = 7 against the float64 oracle.
-- The static tile sizing: the streamed k = 3 and 5 kernels take any
-  chain; the general kernel raises, instead of falling back, where no
-  tile fits.
+- Chain length: the engine runs its 129-surface correction chain at
+  k = 7 (and 65 at k = 5), and the CUDA engine no longer refuses it when
+  built. The kernels' own sizing (csrc/local_flow.cu) is tested on the
+  card, in tests/test_torch_cuda.py.
 
 Tolerances are those of tests/test_torch_kernels.py (candidate ids exact off
 near-ties, accept flips <= 5e-4, float fields within 0.1% / 5% of the
@@ -116,12 +117,14 @@ def test_correction_mode_matches_pallas_interpret():
                              "pallas correction k3")
 
 
-@pytest.mark.parametrize("k", [7, 9])
+@pytest.mark.parametrize("k", [7, 9, 11])
 @pytest.mark.parametrize("fold_center", [True, False])
 def test_large_filter_matches_jax_dense_eager(k, fold_center):
     """k >= 7 goes to the general kernel, whose plain version is the same
-    local_flow_core; held against the JAX dense path run eagerly."""
-    W, H = 24, 20
+    local_flow_core; held against the JAX dense path run eagerly. k = 11
+    (the kernel's radius at run time) on a sensor of at least 4F + 1 rows
+    and columns, so that every pixel has an in-bounds window."""
+    W, H = (24, 20) if k < 11 else (24, 22)
     kw = dict(width=W, height=H, filter_size=k, min_evts_on_plane=8)
     jc, tc = JConfig(**kw), TConfig(**kw)
     chain, center = _chain_and_centers(W, H, seed=50 + k, n_mid=1)
@@ -134,6 +137,24 @@ def test_large_filter_matches_jax_dense_eager(k, fold_center):
     assert (pcand >= 0).all() and out[2].any()
     _assert_local_equivalent(ref, rbest, scores, out, pcand,
                              f"k{k} fold_center={fold_center}")
+
+
+def test_large_filter_long_chain_matches_jax_dense_eager():
+    """k = 7 on a chain of 101 surfaces and its center, longer than the
+    whole-chain tile the earlier general kernel staged, against the JAX
+    dense path run eagerly; the tolerances and near-tie masks of
+    test_large_filter_matches_jax_dense_eager."""
+    W, H = 24, 20
+    kw = dict(width=W, height=H, filter_size=7, min_evts_on_plane=8)
+    jc, tc = JConfig(**kw), TConfig(**kw)
+    chain, _ = _chain_and_centers(W, H, seed=57, n_mid=100)
+    center = chain.pop()
+    assert len(chain) == 101
+    with jax.disable_jit():
+        *ref, rbest, scores = _jax_dense(chain, center, jc, True)
+    out, pcand = _port(chain, center, tc, True)
+    assert (pcand >= 0).all() and out[2].any()
+    _assert_local_equivalent(ref, rbest, scores, out, pcand, "k7 chain 101")
 
 
 def test_filter_size_7_engine_matches_oracle():
@@ -154,50 +175,52 @@ def test_filter_size_7_engine_matches_oracle():
     np.testing.assert_array_equal(ref.scale[m], got.scale[m])
 
 
-@pytest.mark.parametrize("k, n_chain, rows", [
-    (3, 1, 8), (5, 17, 4), (5, 59, 4), (5, 60, 4), (3, 100, 8), (7, 17, 16),
-    (9, 9, 16), (7, 60, 8), (7, 80, 4), (31, 9, 2)])
-def test_tile_rows_fit_shared_memory(k, n_chain, rows):
-    """The streamed k = 3 and 5 kernels take any chain at fixed tile rows
-    (their shared memory is a fixed ring); the general kernel takes the
-    most rows whose whole staged chain fits."""
-    assert tk.local_flow_tile_rows(k, n_chain) == rows
-    if k in (3, 5):
-        assert tk.local_flow_tile_rows(k, 1) == rows
-    else:
-        R = 2 * (k // 2)
-        assert ((n_chain + 1) * (rows + 2 * R) * (32 + 2 * R) * 4
-                <= tk.SMEM_BYTES)
+def _chain_lengths_seen(cfg, ev):
+    """Chain lengths of every local-flow call of a CPU engine run on ev."""
+    seen = []
+    local_flow = tk.local_flow
+
+    def recording(chain, *a, **kw):
+        seen.append(chain.shape[0])
+        return local_flow(chain, *a, **kw)
+
+    tk.local_flow = recording
+    try:
+        teng.FlowEngine(cfg, device="cpu").process(ev)
+    finally:
+        tk.local_flow = local_flow
+    return sorted(set(seen))
 
 
-@pytest.mark.parametrize("k, n_chain", [(7, 101), (9, 200)])
-def test_chain_that_fits_no_kernel_raises(k, n_chain):
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
-        tk.local_flow_tile_rows(k, n_chain)
-
-
-def test_cuda_engine_with_unfit_chain_raises_before_running():
-    """A correction chain of 1 + P*S = 129 surfaces at k = 7 fits no tile
-    of the general kernel: the CUDA engine refuses it when built, rather
-    than running the plain version; on the CPU the same config runs."""
+def test_cuda_engine_accepts_129_surface_chain():
+    """A correction chain of 1 + P*S = 129 surfaces at k = 7, which no
+    whole-chain tile held, passes the CUDA engine's construction checks:
+    the engine has none left for the chain (without a card the build
+    stops only at "CUDA is not available"). On the CPU the same config
+    runs its 16- and 129-surface chains."""
     cfg = TConfig(width=64, height=64, filter_size=7, chunk_size=1024,
-                  sub_phases=8, causal_snapshots=16, center_correction=64)
-    assert teng.chain_lengths(cfg) == (16, 129)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
+                  sub_phases=8, causal_snapshots=16, center_correction=64,
+                  steps_per_scan=1)
+    if torch.cuda.is_available():
         teng.FlowEngine(cfg, device="cuda")
-    teng.FlowEngine(cfg, device="cpu")
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            teng.FlowEngine(cfg, device="cuda")
+    ev = tio.synthetic_random_events(1024, width=64, height=64,
+                                     rate_hz=2e6, seed=5)
+    assert _chain_lengths_seen(cfg, ev) == [16, 129]
 
 
 def test_long_chain_passes_the_cuda_engine_check():
     """At k = 5 the same shape's 65-surface correction chain (past the
-    whole-chain tile the earlier kernel staged) passes the CUDA engine's
-    pre-check: the streamed kernel takes it at its fixed tile rows. The
-    card run is tests/test_torch_cuda.py's."""
+    whole-chain tile the earlier kernel staged): the engine runs a 16- and
+    a 65-surface chain. The card run is tests/test_torch_cuda.py's."""
     cfg = TConfig(width=64, height=64, filter_size=5, chunk_size=1024,
-                  sub_phases=4, causal_snapshots=16, center_correction=64)
-    assert teng.chain_lengths(cfg) == (16, 65)
-    assert [tk.local_flow_tile_rows(5, n) for n in (16, 65)] == [4, 4]
-    teng.FlowEngine(cfg, device="cpu")
+                  sub_phases=4, causal_snapshots=16, center_correction=64,
+                  steps_per_scan=1)
+    ev = tio.synthetic_random_events(1024, width=64, height=64,
+                                     rate_hz=2e6, seed=5)
+    assert _chain_lengths_seen(cfg, ev) == [16, 65]
 
 
 def test_wrapper_raises_on_a_device_without_a_kernel():
