@@ -41,7 +41,10 @@ Phases, each printed with its result and seconds:
    against the rows of the whole-sensor kernel's output, with the same
    times for one interior 80-row band and for the one 320-row band;
 4. chunk_size=1 on the card against the float64 NumPy oracle
-   (farms_tpu_torch/pipeline/oracle.py) on a translating-bar stream;
+   (farms_tpu_torch/pipeline/oracle.py) on a translating-bar stream, with
+   tests/test_golden.py's asserts: the dense engine, the per-event engine
+   (use_dense=False) and the serial engine (pipeline/serial.py), the last
+   two with one integral launch per step (per valid event) and no other;
 5. the main paths through the CLI on a 1,048,576-event stream (320 x 320,
    5e6 ev/s, seed 0): the `benchmark` preset, the `fidelity` preset
    (snapshot chain, rank-2 correction), the benchmark preset at
@@ -61,7 +64,19 @@ Phases, each printed with its result and seconds:
    for byte on every line but those whose scale id differs at a float64
    tie of the per-scale mean lengths (farms_tpu_torch/pipeline/ties.py on
    the aperture inputs of the single engine's run). With one card it
-   prints why it did not run.
+   prints why it did not run;
+8. `--backend perevent --preset benchmark` through the CLI on the same
+   stream, card against CPU as in 5: 16 integral launches (8 steps x 2
+   phases) and none of the other kernels;
+9. `--SERIAL 1 --numEvents 4096` through the CLI on the card and the CPU:
+   one `Local` line per event and one `true` line per valid event
+   (captured), the [Benchmark Main] line and no output file; then the
+   serial engine in-process, card against CPU on every valid flag and
+   scale id;
+10. rates: FlowEngine.process on the card, per-event against dense, at
+   chunks 256, 2048 and 131072 on the stream and chunk 1 on a 4096-event
+   cut: events/s and device-busy ms per 1M events (torch.profiler), each
+   line with the card's nvidia-smi name and power limit. No bound.
 
 The line before the last is the card's nvidia-smi name and power limit;
 the one before it a JSON summary of the kernels, with each kernel's bound
@@ -77,6 +92,7 @@ printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import filecmp
 import io
 import json
@@ -95,6 +111,11 @@ SENSOR = 320
 STREAM_EVENTS = 1 << 20
 K7_EVENTS = 1 << 18
 K7_FIDELITY_EVENTS = 1 << 17
+SERIAL_EVENTS = 4096        # the serial CLI phase's cut of the stream
+# (chunk_size, events, profiled events) of the rates phase
+RATE_RUNS = ((1, 4096, 256), (256, STREAM_EVENTS, 16384),
+             (2048, STREAM_EVENTS, 131072),
+             (131072, STREAM_EVENTS, STREAM_EVENTS))
 TIMING_REPS = 30
 LONG_PLAIN_REPS = 3         # plain calls timed on the long chains
 LOCAL_NAMES = ("accept", "a", "b", "dtdp", "cand")
@@ -614,36 +635,70 @@ def check_halo_kernels(dev):
     return results
 
 
+def _assert_oracle(label, ref, got):
+    """tests/test_golden.py:44-60's asserts: valid flags, scale ids and t
+    equal to the float64 oracle's, r_local and r_true within 1e-4
+    relative, the true flow's angle within 0.01 degrees. Returns the
+    largest errors."""
+    rv, gv = ref.r_local > 0, got.r_local > 0
+    if not (rv == gv).all():
+        raise AssertionError(f"{label}: {(rv != gv).sum()} validity flips")
+    if not (ref.scale == got.scale).all():
+        raise AssertionError(f"{label}: {(ref.scale != got.scale).sum()} "
+                             "scale differences")
+    if not (ref.t == got.t).all() or rv.sum() < 100:
+        raise AssertionError(f"{label}: stamps differ or the bar stream "
+                             "produced no flow")
+    rl = np.abs(got.r_local[rv] / ref.r_local[rv] - 1).max()
+    rt = np.abs(got.r_true[rv] / ref.r_true[rv] - 1).max()
+    ang = np.degrees(np.abs(np.angle(np.exp(
+        1j * (ref.theta_true[rv] - got.theta_true[rv]))))).max()
+    if rl > 1e-4 or rt > 1e-4 or ang >= 0.01:
+        raise AssertionError(f"{label}: r_local rel {rl}, r_true rel {rt}, "
+                             f"angle {ang} deg")
+    return rl, rt, ang
+
+
 def check_oracle(dev):
-    """Phase 4: chunk_size=1 on the card reproduces the float64 oracle."""
+    """Phase 4: chunk_size=1 on the card reproduces the float64 oracle:
+    the dense engine, the per-event engine (use_dense=False) and the serial
+    engine. The per-event paths run one integral launch per micro-step
+    (the last call's padding steps too) or, in serial mode, per valid
+    event, and no other kernel."""
     from farms_tpu_torch.config import FlowConfig
     from farms_tpu_torch.events.io import synthetic_translating_bar
-    from farms_tpu_torch.pipeline.engine import FlowEngine
+    from farms_tpu_torch.pipeline.engine import FlowEngine, call_steps
     from farms_tpu_torch.pipeline.oracle import run_oracle
+    from farms_tpu_torch.pipeline.serial import SerialFlowEngine
 
-    t0 = time.perf_counter()
     ev = synthetic_translating_bar(width=64, height=64, bar_len=20,
                                    duration_us=30000, speed_px_per_sec=1000,
                                    jitter_us=20, seed=1)[:600]
     ref = run_oracle(ev, FlowConfig(width=64, height=64))
-    got = FlowEngine(FlowConfig(width=64, height=64, chunk_size=1,
-                                steps_per_scan=32), device=dev).process(ev)
-    rv, gv = ref.r_local > 0, got.r_local > 0
-    if not (rv == gv).all():
-        raise AssertionError(f"oracle: {(rv != gv).sum()} validity flips")
-    if not (ref.scale == got.scale).all():
-        raise AssertionError(f"oracle: {(ref.scale != got.scale).sum()} "
-                             "scale differences")
-    if rv.sum() < 100:
-        raise AssertionError("oracle: the bar stream produced no flow")
-    rl = np.abs(got.r_local[rv] / ref.r_local[rv] - 1).max()
-    rt = np.abs(got.r_true[rv] / ref.r_true[rv] - 1).max()
-    if rl > 1e-4 or rt > 1e-4:
-        raise AssertionError(f"oracle: r_local rel {rl}, r_true rel {rt}")
-    _phase("oracle chunk_size=1", t0,
-           f"{len(ev)} events, {int(rv.sum())} valid: valid and scale equal "
-           f"to the float64 oracle; max rel err r_local {rl:.3g}, "
-           f"r_true {rt:.3g}")
+    n_valid = int((ref.r_local > 0).sum())
+    cfg = FlowConfig(width=64, height=64, chunk_size=1, steps_per_scan=32)
+    spc = call_steps(cfg)
+    runs = (
+        ("oracle chunk_size=1", None,
+         lambda: FlowEngine(cfg, device=dev).process(ev)),
+        ("oracle perevent chunk_size=1",
+         {"integral": -(-len(ev) // spc) * spc},
+         lambda: FlowEngine(dataclasses.replace(cfg, use_dense=False),
+                            device=dev).process(ev)),
+        ("oracle serial", {"integral": n_valid},
+         lambda: SerialFlowEngine(cfg, device=dev).run(ev, quiet=True)[0]))
+    for label, want, run in runs:
+        t0 = time.perf_counter()
+        if want is None:
+            got, launches = run(), "not counted"
+        else:
+            got, launches = _counted(label, run, want)
+        rl, rt, ang = _assert_oracle(label, ref, got)
+        _phase(label, t0,
+               f"{len(ev)} events, {n_valid} valid: valid, scale and t equal "
+               f"to the float64 oracle; max rel err r_local {rl:.3g}, "
+               f"r_true {rt:.3g}; max angle err {ang:.3g} deg; launches "
+               f"{launches}")
 
 
 def _run_cli(argv):
@@ -758,19 +813,16 @@ def check_main_paths(base, work):
         card_files[preset] = os.path.join(work, f"single_{preset}.txt")
         results[preset] = _cli_path(preset, _stream_argv(base, preset), base,
                                     STREAM_EVENTS, want, card_files[preset])
-    # the general kernel's paths, each one call of exactly the cut
-    # stream's steps (a call runs --steps-per-scan steps, padding the last
-    # ones)
+    # the general kernel's paths on cut streams (a call at chunk 131072
+    # holds one micro-step, so no step is padding)
     for preset, n_events in (("benchmark", K7_EVENTS),
                              ("fidelity", K7_FIDELITY_EVENTS)):
-        k7_steps = n_events // 131072
-        want = _preset_launches(k7_steps)[preset]
+        want = _preset_launches(n_events // 131072)[preset]
         want["local_flow_general"] = want.pop("local_flow")
         label = f"{preset} k=7"
         results[label] = _cli_path(
             label, _stream_argv(base, preset) + [
-                "--filtersize", "7", "--numEvents", str(n_events),
-                "--steps-per-scan", str(k7_steps)],
+                "--filtersize", "7", "--numEvents", str(n_events)],
             base, n_events, want)
     return results, card_files
 
@@ -907,6 +959,153 @@ def check_nccl(base, work):
     return rates
 
 
+def check_perevent_cli(base):
+    """`--backend perevent --preset benchmark` through the CLI on the
+    card and the CPU: the per-event path runs the integral kernel once a
+    phase (8 steps x 2 phases) and no other kernel. Returns (launches,
+    rate)."""
+    steps = STREAM_EVENTS // 131072
+    return _cli_path("perevent benchmark",
+                     _stream_argv(base, "benchmark") + ["--backend",
+                                                        "perevent"],
+                     base, STREAM_EVENTS, {"integral": 2 * steps})
+
+
+def check_serial_cli(base, dev):
+    """`--SERIAL 1 --numEvents 4096` through the CLI on the card and the
+    CPU: one `Local` line per event and one `true` line per valid event
+    (captured, not echoed), the [Benchmark Main] line, no output file, and
+    one integral launch per valid event on the card. Then the serial
+    engine in-process on the card and the CPU: valid flags and scale ids
+    equal on every event. Returns (launches, rate)."""
+    import torch
+    from farms_tpu_torch.config import FlowConfig
+    from farms_tpu_torch.events.io import load_events_txt
+    from farms_tpu_torch.ops import kernels
+    from farms_tpu_torch.pipeline.serial import SerialFlowEngine
+
+    out_file = base + "_FARMSOut_batch.txt"
+    argv = ["--filename", base, "--width", str(SENSOR), "--height",
+            str(SENSOR), "--SERIAL", "1", "--numEvents", str(SERIAL_EVENTS)]
+    said = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        if os.path.exists(out_file):
+            os.remove(out_file)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out, rate = _run_cli(argv + ["--device", device])
+        launches = dict(kernels.LAUNCHES)
+        words = [ln.split()[:1] for ln in out.splitlines()]
+        n_local, n_true = words.count(["Local"]), words.count(["true"])
+        want = {k: 0 for k in launches}
+        if device == "cuda":
+            want["integral"] = n_true
+        if (n_local != SERIAL_EVENTS or not n_true or launches != want
+                or os.path.exists(out_file)
+                or out.count("[Benchmark Main]") != 1):
+            raise AssertionError(
+                f"serial cli {device}: {n_local} Local and {n_true} true "
+                f"lines, launches {launches}, output file written: "
+                f"{os.path.exists(out_file)}")
+        said[device] = (n_true, launches, rate)
+        _phase(f"cli serial {device}", t0,
+               f"{n_local} Local lines, {n_true} true lines, no output "
+               f"file; launches {launches}; [Benchmark Main] rate "
+               f"{rate:.1f} events/sec")
+    if said["cuda"][0] != said["cpu"][0]:
+        raise AssertionError(f"serial cli: {said['cuda'][0]} valid events "
+                             f"on the card, {said['cpu'][0]} on the cpu")
+    t0 = time.perf_counter()
+    ev = load_events_txt(base, SERIAL_EVENTS)
+    cfg = FlowConfig(width=SENSOR, height=SENSOR, chunk_size=1)
+    card, cpu = (SerialFlowEngine(cfg, device=d).run(ev, quiet=True)[0]
+                 for d in (dev, "cpu"))
+    vg, vc = card.r_local > 0, cpu.r_local > 0
+    if (vg != vc).any() or (card.scale != cpu.scale).any() or not vg.any():
+        raise AssertionError(f"serial engine card vs cpu: {(vg != vc).sum()}"
+                             f" valid flags, {(card.scale != cpu.scale).sum()}"
+                             " scale ids differ")
+    if not np.isfinite(card.r_true).all():
+        raise AssertionError("serial engine: non-finite r_true on the card")
+    _phase("serial engine card vs cpu", t0,
+           f"{len(ev)} events, {int(vg.sum())} valid: valid flags and scale "
+           f"ids equal on every event")
+    return said["cuda"][1], said["cuda"][2]
+
+
+def _busy_ms(fn) -> float:
+    """Device-busy milliseconds of one call of fn: the sum of the device
+    times of every kernel and copy it ran, from torch.profiler (one
+    stream, so they do not overlap)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation)
+    if not busy:
+        raise AssertionError("torch.profiler recorded no device time")
+    return busy / 1e3
+
+
+def check_rates(base, smi):
+    """The per-event path against the dense path on the card (both at 2
+    sub-phases and the f16 wire; one phase at chunk 1): events/s of a
+    warmed FlowEngine.process over the stream (a 4096-event cut at chunk
+    1), and device-busy ms per 1M events from torch.profiler over the
+    first `profiled` events of a fresh run. No bound: a failed run fails
+    the smoke. Returns {label: events/s}."""
+    import torch
+    from farms_tpu_torch.config import FlowConfig
+    from farms_tpu_torch.events.io import load_events_txt
+    from farms_tpu_torch.pipeline.engine import FlowEngine
+
+    ev = load_events_txt(base)
+    rates = {}
+    print(f"[rates] card: {smi}", flush=True)
+    for chunk, n_events, profiled in RATE_RUNS:
+        part = ev[:n_events]
+        said = []
+        for path in ("perevent", "dense"):
+            t0 = time.perf_counter()
+            cfg = FlowConfig(width=SENSOR, height=SENSOR, chunk_size=chunk,
+                             sub_phases=1 if chunk == 1 else 2, wire="f16",
+                             use_dense=path == "dense")
+            eng = FlowEngine(cfg, device="cuda")
+            eng.process(part[:2 * chunk])            # warm-up
+            eng.reset()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = eng.process(part)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            if len(out) != n_events or not np.isfinite(out.r_true).all():
+                raise AssertionError(f"rates {path} chunk {chunk}: bad "
+                                     "output")
+            eng.reset()
+            busy = _busy_ms(lambda: eng.process(part[:profiled]))
+            per_m = busy * (1 << 20) / profiled
+            rate = n_events / wall
+            wall_m = wall * 1e3 * (1 << 20) / n_events
+            rates[f"{path} chunk={chunk}"] = rate
+            said.append(f"{path} {rate:.1f} events/s ({n_events} events in "
+                        f"{wall:.3f} s), device busy {per_m:.3f} ms per 1M "
+                        f"events ({busy:.3f} ms over {profiled} events; "
+                        f"busy {100 * per_m / wall_m:.1f} % of the timed "
+                        "wall time)")
+            _phase(f"rates {path} chunk={chunk}", t0, said[-1])
+        print(f"[rates] chunk={chunk}: {'; '.join(said)}; card {smi}",
+              flush=True)
+    return rates
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -937,6 +1136,9 @@ def main() -> int:
         paths, card_files = check_main_paths(base, work)
         paths.update(check_halo_paths(base, card_files))
         rates = check_nccl(base, work)
+        paths["perevent benchmark"] = check_perevent_cli(base)
+        paths["serial"] = check_serial_cli(base, dev)
+        path_rates = check_rates(base, smi)
     rates.update({label: rate for label, (_, rate) in paths.items()})
     entries = []
     for name, (src, line) in KERNEL_SOURCES.items():
@@ -951,6 +1153,8 @@ def main() -> int:
             launches=sum(by_path.values()), launches_by_path=by_path,
             library_ms=None, **timings[name], **halo))
     print(f"[rates] [Benchmark Main] events/sec by path: {rates}")
+    print(f"[rates] FlowEngine.process events/sec, per-event and dense: "
+          f"{path_rates}")
     print(json.dumps({"kernels": entries}))
     print(_nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -8,17 +8,28 @@ there is none fails rather than running on the CPU, so CPU runs pass
 `--device cpu`. The tensor's device picks the kernels (cuda) or their plain
 versions (cpu).
 
-`--engine halo --devices N` runs the spatially sharded engine
+Modes, as in the reference (main.cpp:193-209):
+
+- `--SERIAL 0` (default): batch processing with the chunked engine; writes
+  `<filename>_FARMSOut_batch.txt` and times the whole processing call.
+- `--SERIAL 1`: event-serial streaming (pipeline/serial.py): per-event
+  `Local <us> <cum>` / `true <us> <cum>` prints, no output file, a
+  compute-only benchmark duration, and at most filesize / 18 events.
+
+`--backend perevent` runs the per-event formulation (use_dense=False);
+auto, pallas and dense all run the dense path, whose kernels the device
+picks. `--engine halo --devices N` runs the spatially sharded engine
 (parallel/halo.py) on N ranks: N processes over NCCL, one card each, with
 `--device cuda`, or over gloo with `--device cpu`; N of 0 or 1 runs one
 rank in this process. Every rank reads the stream; rank 0 prints and
-writes the output. `--SERIAL 1`, the `dp`, `spatial` and `multihost`
-engines, `--backend perevent` and `--multihost` are not ported and raise
-NotImplementedError.
+writes the output. The `dp`, `spatial` and `multihost` engines,
+`--multihost`, and `--SERIAL 1` on more than one halo rank are not ported
+and raise NotImplementedError.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -30,6 +41,7 @@ from farms_tpu_torch.ops import _build
 from farms_tpu_torch.parallel import mesh
 from farms_tpu_torch.parallel.halo import HaloFlowEngine
 from farms_tpu_torch.pipeline.engine import FlowEngine
+from farms_tpu_torch.pipeline.serial import SerialFlowEngine
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -51,8 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
                    dest="num_events", type=int, default=None,
                    help="max number of events to process")
     p.add_argument("--SERIAL", type=int, default=0,
-                   help="0 = batched processing (runFileCopy); 1 = "
-                        "event-serial streaming (not ported yet)")
+                   help="1 = event-serial streaming mode with per-event "
+                        "phase timing, no output file (reference run()); "
+                        "0 = batched processing (default, runFileCopy)")
     p.add_argument("--v", type=int, default=0, help="verbose mode")
     # engine flags
     p.add_argument("--device", type=str, default="cuda",
@@ -126,7 +139,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "pallas", "dense", "perevent"],
                    help="compute formulation: auto/pallas/dense all run the "
                         "dense path (the device picks kernel or plain "
-                        "version); perevent is not ported yet")
+                        "version); perevent = the per-event gather "
+                        "formulation")
     p.add_argument("--multihost", action="store_true",
                    help="multi-host run (not ported yet)")
     return p
@@ -179,9 +193,10 @@ def _resolve_operating_point(args):
 
 
 def _refuse_unported(args) -> None:
-    if args.SERIAL == 1:
+    if args.SERIAL == 1 and args.engine == "halo" and args.devices > 1:
         raise NotImplementedError(
-            "--SERIAL 1 is not ported yet (ROADMAP Queue 1 item 9)")
+            "--SERIAL 1 runs one event at a time on one device; it has no "
+            "multi-rank form")
     if args.engine not in ("single", "halo"):
         raise NotImplementedError(
             f"--engine {args.engine} is not ported (ROADMAP Queue 1 item "
@@ -190,9 +205,6 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             "--devices > 1 needs --engine halo (the dp engine is not ported "
             "yet, ROADMAP Queue 1 item 11)")
-    if args.backend == "perevent":
-        raise NotImplementedError(
-            "--backend perevent is not ported yet (ROADMAP Queue 1 item 9)")
     if args.multihost:
         raise NotImplementedError(
             "--multihost is not ported yet (ROADMAP Queue 1 item 11)")
@@ -210,9 +222,16 @@ def main(argv=None) -> int:
 
 
 def build_config(args) -> FlowConfig:
-    """The FlowConfig of parsed CLI arguments (operating point resolved)."""
+    """The FlowConfig of parsed CLI arguments (operating point resolved).
+
+    `--SERIAL 1` runs one event at a time: chunk 1, one phase, no
+    aperture phasing, snapshots or correction, whatever the preset says
+    (farms_tpu/cli.py:273-278)."""
     (chunk_size, sub_phases, ap_phases, snapshots, correction,
      coarse_chain, wire) = _resolve_operating_point(args)
+    if args.SERIAL == 1:
+        chunk_size, sub_phases, ap_phases, snapshots, correction = (
+            1, 1, 0, 1, 0)
     return FlowConfig(
         width=args.width,
         height=args.height,
@@ -229,8 +248,22 @@ def build_config(args) -> FlowConfig:
         center_correction=correction,
         correction_coarse_chain=coarse_chain,
         wire=wire,
+        use_dense=args.backend != "perevent",
         replicate_y_clamp_quirk=args.y_clamp_quirk,
     )
+
+
+def _serial_cap(args) -> int | None:
+    """The event cap of serial mode: at most filesize / 18 events, the
+    reference's rough bytes-per-line estimate (vFlow.cpp:511); batch mode
+    has none (its cap is commented out, vFlow.cpp:164)."""
+    path = (args.filename if args.filename.endswith(".txt")
+            else args.filename + ".txt")
+    try:
+        cap = os.path.getsize(path) // 18
+    except OSError:
+        return args.num_events
+    return cap if args.num_events is None else min(args.num_events, cap)
 
 
 def _run(args) -> int:
@@ -239,7 +272,8 @@ def _run(args) -> int:
     rank, _ = mesh.rank_and_size()
     say = print if rank == 0 else (lambda *a, **k: None)
     cfg = build_config(args)
-    if args.preset is None:
+    serial = args.SERIAL == 1
+    if args.preset is None and not serial:
         say(
             f"[farms-flow] operating point: chunk_size={cfg.chunk_size} "
             f"sub_phases={cfg.sub_phases} "
@@ -248,14 +282,17 @@ def _run(args) -> int:
             f"correction={cfg.center_correction} wire={cfg.wire} "
             "(implicit; pin with --preset or explicit flags)",
             file=sys.stderr)
-    if args.engine == "halo":
+    if serial:
+        engine = SerialFlowEngine(cfg, device=args.device)
+    elif args.engine == "halo":
         engine = HaloFlowEngine(cfg, device=args.device)
     else:
         engine = FlowEngine(cfg, device=args.device)
 
     say(args.filename + ".txt")
     say("Reading input file ")
-    ev = load_events_txt(args.filename, args.num_events,
+    ev = load_events_txt(args.filename,
+                         _serial_cap(args) if serial else args.num_events,
                          layout=args.layout, time_unit=args.time_unit)
     say(f"Done reading {len(ev)} Events.")
     if len(ev) == 0:
@@ -263,16 +300,26 @@ def _run(args) -> int:
         return 1
     say(f"First time = {int(ev.t[0])}")
 
-    say("Running batch ")
-    say("Processing events ")
-    t_start = time.perf_counter()
-    out = engine.process(ev)
-    duration_us = int((time.perf_counter() - t_start) * 1e6)
-    if rank:
-        return 0
-    print()
-    print("Done processing!")
-    if not args.no_output:
+    if serial:
+        # the reference's serial mode (main.cpp:159-161, vFlow.cpp:465-826)
+        print("Running serially ")
+        print("Processing events ")
+        out, duration_us = engine.run(ev)
+        print()
+        print("Done processing!")
+    else:
+        say("Running batch ")
+        say("Processing events ")
+        t_start = time.perf_counter()
+        out = engine.process(ev)
+        duration_us = int((time.perf_counter() - t_start) * 1e6)
+        if rank:
+            return 0
+        print()
+        print("Done processing!")
+    # serial mode writes no file (the reference's writes are commented
+    # out, vFlow.cpp:488-489, 730-737)
+    if not serial and not args.no_output:
         print()
         print("Writing output file.")
         write_flow_txt(out, args.filename)

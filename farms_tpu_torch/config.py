@@ -203,8 +203,6 @@ def require_slice(cfg: FlowConfig) -> None:
     missing = []
     if cfg.wire == "sparse":
         missing.append("wire='sparse' (ROADMAP Queue 1 item 8)")
-    if not cfg.use_dense:
-        missing.append("use_dense=False (ROADMAP Queue 1 item 9)")
     if cfg.padded_width is not None or cfg.padded_height is not None:
         missing.append("padded array geometry (ROADMAP Queue 1 item 11)")
     if cfg.width * cfg.height >= 1 << 30:

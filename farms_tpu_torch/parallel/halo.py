@@ -368,6 +368,47 @@ class HaloFlowEngine(FlowEngine):
             flow_vy=torch.zeros(shape, dtype=torch.float32, device=dev),
             step=0)
 
+    def set_state(self, state: SurfaceState) -> None:
+        """Adopt a whole-sensor [W, H] state (a restored checkpoint): each
+        surface is padded to the array geometry (pad rows as never
+        written) and this rank keeps its band of rows. The host stamp
+        mirror takes the whole sensor: every rank packs the whole stream."""
+        super().set_state(state)
+        cfg = self.cfg
+        rows = cfg.array_width // self.n_shards
+        pad = (0, cfg.array_height - cfg.height, 0,
+               cfg.array_width - cfg.width)
+
+        def band(a, fill):
+            a = F.pad(a, pad, value=fill) if any(pad) else a
+            return a[self.rank * rows:(self.rank + 1) * rows].contiguous()
+
+        self.state = SurfaceState(
+            band(state.t_surf, 0), band(state.epoch, -1),
+            band(state.flow_len, 0.0), band(state.flow_vx, 0.0),
+            band(state.flow_vy, 0.0), state.step)
+
+    def whole_state(self) -> SurfaceState | None:
+        """The bands of every rank gathered on rank 0 at the semantic
+        [W, H] geometry (the padding stripped; pad cells are never
+        written); None on the other ranks."""
+        cfg = self.cfg
+        st = self.state
+        f32 = [a.view(torch.int32) for a in
+               (st.flow_len, st.flow_vx, st.flow_vy)]
+        block = torch.stack([st.t_surf, st.epoch, *f32])   # [5, rows, Ha]
+        if self.n_shards > 1:
+            parts = ([torch.empty_like(block) for _ in range(self.n_shards)]
+                     if self.rank == 0 else None)
+            dist.gather(block, parts, dst=0)
+            if self.rank:
+                return None
+            block = torch.cat(parts, 1)
+        block = block[:, :cfg.width, :cfg.height].contiguous()
+        return SurfaceState(block[0], block[1], block[2].view(torch.float32),
+                            block[3].view(torch.float32),
+                            block[4].view(torch.float32), st.step)
+
     # ---- host-side packing -------------------------------------------------
     def pack_halo(self, ev: EventBatch, steps_per_call: int | None = None):
         """The 5-row layout and its owner-shard reorder (JAX:
@@ -387,8 +428,7 @@ class HaloFlowEngine(FlowEngine):
         gives the replicated layout for the whole stream (perm None).
         """
         cfg = self.cfg
-        spc = steps_per_call or cfg.steps_per_scan
-        compact, nn = self.pack(ev, steps_per_call=spc)
+        compact, nn = self.pack(ev, steps_per_call=steps_per_call)
         word = compact[:, :, 0, :]
         flat = word & 0x3FFFFFFF
         valid = flat < cfg.width * cfg.height
@@ -397,7 +437,7 @@ class HaloFlowEngine(FlowEngine):
                   compact[:, :, 1, :], valid, (word >> 30) & 1]
         centers = None
         if cfg.center_correction:
-            fl, ctr = self.pack_r2(ev, steps_per_call=spc)
+            fl, ctr = self.pack_r2(ev, steps_per_call=steps_per_call)
             rows_5.append(fl)
             centers = np.pad(ctr, ((0, 0), (0, 0),
                                    (0, cfg.array_width - cfg.width),

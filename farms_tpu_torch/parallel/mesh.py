@@ -33,6 +33,12 @@ def rank_and_size() -> tuple[int, int]:
     return 0, 1
 
 
+def barrier() -> None:
+    """Wait for every rank of this process's group (no-op without one)."""
+    if rank_and_size()[1] > 1:
+        dist.barrier()
+
+
 def run(fn, world_size: int, device: str, *args):
     """fn(*args) on `world_size` ranks; returns rank 0's result.
 

@@ -4,11 +4,18 @@ Reads and writes the version-3 `.npz` format of
 `farms_tpu.pipeline.checkpoint`, so a state saved by either package resumes
 in the other: the surface arrays at the semantic sensor geometry, the
 micro-step counter and the stream's latched t0.
+
+Checkpoints are engine-portable: the halo engine (parallel/halo.py) saves
+its bands gathered to the whole sensor (`whole_state`; rank 0 writes) and
+restores by giving each rank its band of the whole state (`set_state`), so
+a single-engine checkpoint resumes on any number of ranks and the other
+way round.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from farms_tpu_torch.parallel import mesh
 from farms_tpu_torch.pipeline.engine import FlowEngine
 from farms_tpu_torch.state.surfaces import state_from_numpy
 
@@ -16,22 +23,27 @@ FORMAT_VERSION = 3
 
 
 def save_engine(engine: FlowEngine, path: str) -> str:
-    """Write the engine's full state to an .npz file."""
+    """Write the engine's full state to an .npz file.
+
+    Every rank of a halo engine calls it; it returns once the file is
+    written."""
     if not path.endswith(".npz"):
         path = path + ".npz"
-    state = engine.state
-    np.savez_compressed(
-        path,
-        version=np.int32(FORMAT_VERSION),
-        t_surf=state.t_surf.cpu().numpy(),
-        epoch=state.epoch.cpu().numpy(),
-        flow_len=state.flow_len.cpu().numpy(),
-        flow_vx=state.flow_vx.cpu().numpy(),
-        flow_vy=state.flow_vy.cpu().numpy(),
-        step=np.int32(state.step),
-        t0=np.uint32(engine._t0 if engine._t0 is not None else 0),
-        has_t0=np.bool_(engine._t0 is not None),
-    )
+    state = engine.whole_state()
+    if state is not None:
+        np.savez_compressed(
+            path,
+            version=np.int32(FORMAT_VERSION),
+            t_surf=state.t_surf.cpu().numpy(),
+            epoch=state.epoch.cpu().numpy(),
+            flow_len=state.flow_len.cpu().numpy(),
+            flow_vx=state.flow_vx.cpu().numpy(),
+            flow_vy=state.flow_vy.cpu().numpy(),
+            step=np.int32(state.step),
+            t0=np.uint32(engine._t0 if engine._t0 is not None else 0),
+            has_t0=np.bool_(engine._t0 is not None),
+        )
+    mesh.barrier()
     return path
 
 

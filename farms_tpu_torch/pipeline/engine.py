@@ -24,7 +24,9 @@ import torch
 from farms_tpu_torch.config import FlowConfig, require_slice
 from farms_tpu_torch.events.io import EventBatch, FlowOutput
 from farms_tpu_torch.ops import _build, kernels
+from farms_tpu_torch.ops.aperture import aperture_batch, build_integral
 from farms_tpu_torch.ops.dense_flow import onehot_gather, trig_tail
+from farms_tpu_torch.ops.local_flow import local_flow_batch
 from farms_tpu_torch.state.surfaces import (SurfaceState, init_state,
                                             kill_stale_flow,
                                             kill_stale_flow_in_phase)
@@ -38,6 +40,21 @@ _C2_ESCAPES = 16
 # pixel's pre-phase value; the host ships those lanes. A call with a phase
 # over budget takes the epoch-scatter path instead.
 _W_ESCAPES = 32
+
+# events a host->device call holds where the caller does not size calls
+# (farms_tpu/pipeline/engine.py:1148): a chunk this large runs one
+# micro-step a call, so a stream's last call pads at most one step
+_CALL_EVENTS = 131072
+
+
+def call_steps(cfg: FlowConfig, steps_per_call: int | None = None) -> int:
+    """Micro-steps per host->device call: `steps_per_call` where given,
+    else steps_per_scan capped at the steps that hold _CALL_EVENTS events
+    (farms_tpu/pipeline/engine.py:1161-1170). Every packer sizes its calls
+    here, so process() and a direct pack agree."""
+    if steps_per_call:
+        return steps_per_call
+    return max(1, min(cfg.steps_per_scan, -(-_CALL_EVENTS // cfg.chunk_size)))
 
 
 def compact2_bits(cfg: FlowConfig) -> tuple[int, int]:
@@ -258,6 +275,11 @@ def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig):
       mode, fits each flagged rank-2 lane at its own stamp against the
       chunk's chain, and every lane is assembled at the end from merged
       plane-fit and aperture tables.
+
+    With cfg.use_dense False a phase runs the per-event formulation
+    instead (ops/local_flow.py, ops/aperture.py): each lane gathers its own
+    support and pools its own windows, and only the phase's winners write
+    the flow surfaces. It has none of the features above but the phases.
     """
     x, y, t, is_winner = _decode_batch(batch, cfg)
     wesc = batch.get("wesc")
@@ -270,7 +292,7 @@ def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig):
     ms = mp // S
     corr = cfg.center_correction > 0 and r2f is not None and r2c is not None
     A = cfg.aperture_sub_phases
-    coarse = _coarse(cfg, P)
+    coarse = _coarse(cfg, P) if cfg.use_dense else 0
     # fine aperture groups per phase; a count that does not divide the
     # phase would drop its trailing lanes, and correction forbids it
     k = max(1, A // P) if A else 1
@@ -312,6 +334,12 @@ def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig):
                 snaps.append(t_surf)
             if corr and si in links:
                 chunk_chain.append(t_surf)
+        if not cfg.use_dense:
+            lanes, flow_len, flow_vx, flow_vy = _perevent_phase(
+                t_pre, t_surf, flow_len, flow_vx, flow_vy, xs, ys,
+                t1[sl], wpix[sl], cfg)
+            lanes_out.append(lanes)
+            continue
         if wesc is not None:
             # derived written: pixels whose stamp changed, plus the
             # host-found equal-stamp rewrites (sentinel slots = mp)
@@ -393,7 +421,7 @@ def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig):
         lanes = _merge_lanes(loc, tf, cfg)
     else:
         lanes = torch.cat(lanes_out, 1)
-    if cfg.wire != "f32":
+    if cfg.use_dense and cfg.wire != "f32":
         # the rows are already the f16 pair words (as f32 bits) + aux
         out = (lanes[:2].view(torch.int32), lanes[2].to(torch.uint8))
     else:
@@ -401,6 +429,31 @@ def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig):
     new_state = SurfaceState(t_surf, epoch, flow_len, flow_vx, flow_vy,
                              state.step + 1)
     return new_state, out
+
+
+def _perevent_phase(t_pre, t_surf, flow_len, flow_vx, flow_vy, xs, ys, t1s,
+                    wpix, cfg: FlowConfig):
+    """One phase of the per-event formulation (farms_tpu/pipeline/
+    engine.py:559-586): each lane's plane fit against the causal view of
+    the phase's pre- and post-scatter surfaces, the winners' flow writes
+    (vFlow.cpp:349-356 valid / 398-402 invalid; `wpix` sends the other
+    lanes to the spare cell), then each lane's aperture pooling over the
+    float64 integral of the written surfaces. Returns the [5, mp] f32 wire
+    lanes (vx, vy, gated true_vx, gated true_vy, aux byte value) and the
+    new flow surfaces."""
+    vx, vy, gate, length, _ = local_flow_batch(t_pre, t_surf, xs, ys, t1s,
+                                               cfg)
+    flow_len = _scatter(flow_len, wpix, torch.where(gate, length, 0.0))
+    flow_vx = _scatter(flow_vx, wpix, torch.where(gate, vx, 0.0))
+    flow_vy = _scatter(flow_vy, wpix, torch.where(gate, vy, 0.0))
+    tvx, tvy, scale = aperture_batch(
+        build_integral(flow_len, flow_vx, flow_vy), flow_vx, flow_vy, xs, ys,
+        cfg)
+    aux_f = torch.where(gate, 128 + scale // cfg.window_jump,
+                        0).to(torch.float32)
+    lanes = torch.stack([vx, vy, torch.where(gate, tvx, 0.0),
+                         torch.where(gate, tvy, 0.0), aux_f])
+    return lanes, flow_len, flow_vx, flow_vy
 
 
 def scan_chunk(state: SurfaceState, chunk: dict, cfg: FlowConfig):
@@ -444,11 +497,17 @@ class FlowEngine:
                                     np.int32)
 
     def set_state(self, state: SurfaceState) -> None:
-        """Adopt a state (e.g. a restored checkpoint) and re-seed the host
-        stamp mirror that pack_wesc's equal-stamp detection tracks."""
+        """Adopt a whole-sensor [W, H] state (e.g. a restored checkpoint)
+        and re-seed the host stamp mirror that pack_wesc's equal-stamp
+        detection tracks."""
         self.state = state
         self._last_stamp = (state.t_surf.cpu().numpy().reshape(-1)
                             .astype(np.int32).copy())
+
+    def whole_state(self) -> SurfaceState | None:
+        """The state at the semantic [W, H] geometry, as a checkpoint
+        stores it (None on ranks that do not write checkpoints)."""
+        return self.state
 
     # ---- host-side packing -------------------------------------------------
     def pack(self, ev: EventBatch, steps_per_call: int | None = None):
@@ -467,7 +526,7 @@ class FlowEngine:
             self._t0 = np.uint32(ev.t[0])
 
         m = cfg.chunk_size
-        spc = steps_per_call or cfg.steps_per_scan
+        spc = call_steps(cfg, steps_per_call)
         per_call = m * spc
         n_calls = max(1, -(-n // per_call))
         total = n_calls * per_call
@@ -533,7 +592,7 @@ class FlowEngine:
         n = len(ev)
         if self._t0 is None and n:
             self._t0 = np.uint32(ev.t[0])
-        spc = steps_per_call or cfg.steps_per_scan
+        spc = call_steps(cfg, steps_per_call)
         per_call = m * spc
         n_calls = max(1, -(-n // per_call))
         last = self._last_stamp
@@ -588,7 +647,7 @@ class FlowEngine:
         n = len(ev)
         if self._t0 is None and n:
             self._t0 = np.uint32(ev.t[0])
-        spc = steps_per_call or cfg.steps_per_scan
+        spc = call_steps(cfg, steps_per_call)
         per_call = m * spc
         n_calls = max(1, -(-n // per_call))
         x = np.clip(ev.x.astype(np.int64), 0, W - 1)
@@ -697,13 +756,16 @@ class FlowEngine:
         """Process an event stream (or a continuation of one).
 
         Single-threaded: packs on the host, uploads each call's batch, runs
-        its micro-steps, and copies the wire outputs back.
+        its micro-steps, and copies the wire outputs back. A call holds
+        call_steps(cfg, steps_per_call) micro-steps.
         """
         n = len(ev)
         if n == 0:
             return _empty_output()
         packed, aux2, n = self.pack2(ev, steps_per_call=steps_per_call)
-        wesc, w_ok = self.pack_wesc(ev, steps_per_call=steps_per_call)
+        # the escapes of the derived `written` exist on the dense path only
+        wesc, w_ok = (self.pack_wesc(ev, steps_per_call=steps_per_call)
+                      if self.cfg.use_dense else (None, None))
         r2 = (self.pack_r2(ev, steps_per_call=steps_per_call)
               if self.cfg.center_correction else None)
         dev = self.device
@@ -713,7 +775,7 @@ class FlowEngine:
             if aux2 is not None:
                 chunk["base"] = torch.from_numpy(aux2[0][c]).to(dev)
                 chunk["esc"] = torch.from_numpy(aux2[1][c]).to(dev)
-            if w_ok[c]:
+            if wesc is not None and w_ok[c]:
                 chunk["wesc"] = torch.from_numpy(wesc[c]).to(dev)
             if r2 is not None:
                 chunk["r2f"] = torch.from_numpy(r2[0][c]).to(dev)

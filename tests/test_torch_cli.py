@@ -90,6 +90,7 @@ def test_benchmark_preset_runs_on_cpu(tmp_path, capsys):
     ["--sub-phases", "2", "--aperture-sub-phases", "4"],
     ["--sub-phases", "2", "--aperture-sub-phases", "1"],
     ["--filtersize", "7", "--sub-phases", "2"],
+    ["--backend", "perevent"],
 ])
 def test_fidelity_modes_run(tmp_path, capsys, flags):
     ev, base = _events_file(tmp_path, "fid", n=600)
@@ -102,9 +103,9 @@ def test_fidelity_modes_run(tmp_path, capsys, flags):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--SERIAL", "1"], ["--engine", "dp"], ["--devices", "2"],
-    ["--backend", "perevent"], ["--multihost"], ["--wire", "sparse"],
-    ["--engine", "spatial"], ["--engine", "multihost"],
+    ["--engine", "dp"], ["--devices", "2"], ["--multihost"],
+    ["--wire", "sparse"], ["--engine", "spatial"], ["--engine", "multihost"],
+    ["--SERIAL", "1", "--engine", "halo", "--devices", "2"],
 ])
 def test_unported_modes_raise(tmp_path, flags):
     _, base = _events_file(tmp_path, "x", n=10)

@@ -77,7 +77,6 @@ def test_validation_errors_match(jax_config, kw):
 
 @pytest.mark.parametrize("kw, item", [
     (dict(wire="sparse"), "item 8"),
-    (dict(use_dense=False), "item 9"),
     (dict(width=100, padded_width=128), "item 11"),
     (dict(width=32768, height=32768), "Queue 1 item 5"),
 ])
@@ -98,9 +97,11 @@ def test_unported_features_raise(kw, item):
     dict(filter_size=9, chunk_size=131072, sub_phases=2, aperture_sub_phases=2,
          causal_snapshots=8, center_correction=32768,
          correction_coarse_chain=True, wire="f16"),
+    dict(use_dense=False),
 ])
 def test_fidelity_features_accepted(kw):
-    """The fidelity slice's features and filter sizes past 5 run."""
+    """The fidelity slice's features, filter sizes past 5 and the
+    per-event formulation run."""
     cfg = tconfig.FlowConfig(**kw)
     tconfig.require_slice(cfg)
     from farms_tpu_torch.pipeline.engine import FlowEngine

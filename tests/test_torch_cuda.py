@@ -467,3 +467,91 @@ def test_cuda_wrapper_rejects_bad_input(cuda):
         tk.local_flow(center[None].float(), center, cfg)
     with pytest.raises(ValueError):
         tk.local_flow(center[None], center.t().contiguous()[:, :31], cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 5, 7])
+def test_cuda_local_flow_batch_equals_cpu(cuda, k):
+    """The per-event plane fit on the card: its sums fold in one order on
+    both devices, so the accept flags are the CPU's; the outputs differ
+    only through the trig tail's last-ulp rounding."""
+    from farms_tpu_torch.ops.local_flow import local_flow_batch
+    from test_torch_perevent import _plane_case
+
+    cfg = TConfig(width=40, height=40, filter_size=k)
+    arrays = _plane_case(40, 40, seed=k, shift=2**31 - 10000)
+    want = local_flow_batch(*(torch.from_numpy(a) for a in arrays), cfg)
+    got = local_flow_batch(*(torch.from_numpy(a).to(cuda) for a in arrays),
+                           cfg)
+    assert torch.equal(got[2].cpu(), want[2]) and want[2].sum() > 20
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quirk", [False, True])
+def test_cuda_aperture_batch_equals_cpu(cuda, quirk):
+    """Per-event pooling over the integral kernel's output equals the CPU
+    bit for bit: one integral launch, the same float64 corners, one f32
+    rounding, true divisions."""
+    from farms_tpu_torch.ops import aperture as tap
+
+    cfg = TConfig(width=260, height=200, replicate_y_clamp_quirk=quirk)
+    fields = _flow_fields(260, 200, seed=3)
+    rng = np.random.default_rng(4)
+    xs = torch.from_numpy(rng.integers(0, 260, 5000).astype(np.int32))
+    ys = torch.from_numpy(rng.integers(0, 200, 5000).astype(np.int32))
+
+    def pool(dev):
+        f = [torch.from_numpy(a).to(dev) for a in fields]
+        return tap.aperture_batch(tap.build_integral(*f), f[1], f[2],
+                                  xs.to(dev), ys.to(dev), cfg)
+
+    want = pool("cpu")
+    tk.reset_launches()
+    got = pool(cuda)
+    assert tk.LAUNCHES["integral"] == 1 and sum(tk.LAUNCHES.values()) == 1
+    assert (want[2] > 0).sum() > 100
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_cuda_perevent_and_serial_engines_equal_cpu(cuda):
+    """The per-event engine (chunk 256, 2 phases, f32 wire) and the serial
+    engine on the card give the CPU's valid flags and scale ids on every
+    event, the first with one integral launch per phase, the second with
+    one per valid event, and no other kernel."""
+    from farms_tpu_torch.events.io import synthetic_translating_bar
+    from farms_tpu_torch.pipeline.engine import FlowEngine
+    from farms_tpu_torch.pipeline.serial import SerialFlowEngine
+
+    ev = synthetic_translating_bar(width=64, height=64, bar_len=20,
+                                   duration_us=30000, jitter_us=20, seed=1)
+    cfg = TConfig(width=64, height=64, chunk_size=256, sub_phases=2,
+                  steps_per_scan=2, use_dense=False)
+    scfg = TConfig(width=64, height=64, chunk_size=1)
+    runs = ((lambda d: FlowEngine(cfg, device=d).process(ev),
+             lambda out: 2 * 2 * -(-len(ev) // 512)),
+            (lambda d: SerialFlowEngine(scfg, device=d).run(ev[:500],
+                                                            quiet=True)[0],
+             lambda out: int((out.r_local > 0).sum())))
+    for run, integrals in runs:
+        want = run("cpu")
+        tk.reset_launches()
+        got = run(cuda)
+        assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES},
+                               "integral": integrals(want)}
+        np.testing.assert_array_equal(got.r_local > 0, want.r_local > 0)
+        np.testing.assert_array_equal(got.scale, want.scale)
+        valid = want.r_local > 0
+        assert valid.sum() > 100
+        # the trig tail rounds differently on the two devices: magnitudes
+        # within 1e-5 relative, components within 1e-5 of the magnitude
+        for col in ("r_local", "r_true"):
+            np.testing.assert_allclose(getattr(got, col), getattr(want, col),
+                                       rtol=1e-5, atol=1e-6, err_msg=col)
+        for col in ("vx", "vy"):
+            err = np.abs(getattr(got, col) - getattr(want, col))[valid]
+            assert (err <= 1e-5 * want.r_local[valid] + 1e-6).all(), col

@@ -445,3 +445,36 @@ def test_call_grouping_does_not_change_outputs():
                         device="cpu").process(ev)
     for col in ("vx", "r_true", "scale"):
         np.testing.assert_array_equal(getattr(a, col), getattr(b, col))
+
+
+def test_call_sizing_matches_jax(jax_engine_mod, monkeypatch):
+    """Where the caller does not size calls, a call holds
+    min(steps_per_scan, ceil(131072 / chunk)) micro-steps, as in farms_tpu
+    (farms_tpu/pipeline/engine.py:1161-1170): at chunk 32768 that is 4 of
+    the 8 steps_per_scan, so a 3-step stream runs one call of 4 steps, not
+    8. state.step equals JAX's; padded steps never scatter, so the outputs
+    equal those of one 8-step call bit for bit (and JAX's within the
+    engines' drift). The halo engine's packer sizes its calls alike."""
+    JConfig, jeng, _ = jax_engine_mod
+    kw = dict(width=64, height=64, chunk_size=32768, sub_phases=2,
+              wire="f16")
+    cfg = TConfig(**kw)
+    ev = tio.synthetic_random_events(70000, width=64, height=64,
+                                     rate_hz=1e6, seed=4)
+    assert teng.call_steps(cfg) == 4 < cfg.steps_per_scan
+    je = jeng.FlowEngine(JConfig(**kw))
+    want = je.process(ev)
+    te = teng.FlowEngine(cfg, device="cpu")
+    got, passes = _process_recording_aperture(te, ev, monkeypatch)
+    assert te.state.step == int(je.state.step) == 4
+    _assert_engines_agree(want, got, passes, cfg, "call sizing")
+    for col in ("x", "y", "t", "pol"):
+        np.testing.assert_array_equal(getattr(got, col), getattr(want, col))
+    eight = teng.FlowEngine(cfg, device="cpu")
+    old = eight.process(ev, steps_per_call=8)
+    assert eight.state.step == 8
+    for col in ("vx", "vy", "r_true", "theta_true", "r_local", "scale"):
+        np.testing.assert_array_equal(getattr(got, col), getattr(old, col),
+                                      err_msg=col)
+    from test_torch_halo_ranks import pack_halo
+    assert pack_halo(cfg, ev, 4)[0].shape[1] == 4

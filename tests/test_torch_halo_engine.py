@@ -32,12 +32,13 @@ import torch
 from farms_tpu_torch.config import FlowConfig as TConfig
 from farms_tpu_torch.events import io as tio
 from farms_tpu_torch.parallel import halo, mesh
+from farms_tpu_torch.pipeline import checkpoint as tckpt
 from farms_tpu_torch.pipeline import engine as teng
 from farms_tpu_torch.pipeline.ties import scale_ties
 from test_torch_engine import (_assert_engines_agree,
                                _process_recording_aperture)
 from test_torch_halo_ops import _four_bars
-from test_torch_halo_ranks import pack_halo, process_streams
+from test_torch_halo_ranks import checkpoint_runs, pack_halo, process_streams
 
 torch.set_num_threads(1)
 
@@ -234,6 +235,55 @@ def test_rank_failure_raises_with_its_traceback():
                  [(TConfig(**dict(_BASE, aperture_sub_phases=2)), _bar())],
                  "cpu")
     assert cfg.chunk_size == 64
+
+
+_CUT = 256
+
+
+@pytest.fixture(scope="module")
+def halo_checkpoints(tmp_path_factory):
+    """checkpoint_runs on 4 gloo ranks (tests/test_checkpoint.py:30-75),
+    with a single-engine checkpoint of the same cut: (rank 0's outputs,
+    the halo checkpoint's path, the single engine's path)."""
+    tmp = tmp_path_factory.mktemp("halo_ckpt")
+    cfg = TConfig(**_BASE)
+    eng = teng.FlowEngine(cfg, device="cpu")
+    eng.process(_bar()[:_CUT])
+    single = tckpt.save_engine(eng, str(tmp / "single"))
+    halo_path = str(tmp / "halo.npz")
+    outs = mesh.run(checkpoint_runs, 4, "cpu", cfg, _bar(), _CUT, halo_path,
+                    single, "cpu")
+    return outs, halo_path, single
+
+
+@pytest.mark.parametrize("direction", ["halo-to-halo", "single-to-halo",
+                                       "halo-to-single"])
+def test_halo_checkpoint_resumes(halo_checkpoints, direction, monkeypatch):
+    """A 4-rank halo checkpoint resumes in a fresh 4-rank halo engine
+    equal to the uninterrupted run; a single-engine checkpoint resumes on
+    4 ranks, and the 4-rank one in the single engine, each equal to the
+    single engine's continuation (bitwise off float64 scale ties, as
+    every halo run)."""
+    outs, halo_path, single = halo_checkpoints
+    cfg = TConfig(**_BASE)
+    ev = _bar()
+    if direction == "halo-to-halo":
+        for col in ("vx", "vy", "r_true", "theta_true", "r_local", "scale",
+                    "t"):
+            np.testing.assert_array_equal(
+                np.concatenate([getattr(outs["first"], col),
+                                getattr(outs["second"], col)]),
+                getattr(outs["one"], col), err_msg=col)
+        assert (outs["second"].r_local > 0).sum() > 40
+        return
+    path = single if direction == "single-to-halo" else halo_path
+    ref, passes = _process_recording_aperture(
+        tckpt.load_engine(teng.FlowEngine(cfg, device="cpu"), path),
+        ev[_CUT:], monkeypatch)
+    got = (outs["from_single"] if direction == "single-to-halo"
+           else outs["second"])
+    assert (ref.r_local > 0).sum() > 40
+    _assert_equals_single(ref, got, passes, cfg, direction)
 
 
 def test_port_modules_import_no_jax():

@@ -8,6 +8,7 @@ from unittest import mock
 
 from farms_tpu_torch.parallel import mesh
 from farms_tpu_torch.parallel.halo import HaloFlowEngine
+from farms_tpu_torch.pipeline.checkpoint import load_engine, save_engine
 
 
 def process_streams(jobs, device="cpu"):
@@ -25,3 +26,26 @@ def pack_halo(cfg, ev, n):
     with mock.patch.object(mesh, "rank_and_size", return_value=(0, n)):
         eng = HaloFlowEngine(cfg, device="cpu")
     return eng.pack_halo(ev)
+
+
+def checkpoint_runs(cfg, ev, cut, halo_path, single_path, device="cpu"):
+    """tests/test_checkpoint.py:30-75 on this rank's group: the whole
+    stream in one engine; the stream cut at `cut`, saved to `halo_path`
+    and continued in a fresh engine; and the continuation from the
+    single-engine checkpoint at `single_path`. Each restored engine must
+    hold its own band. Returns {name: FlowOutput} on rank 0."""
+    def restored(path):
+        eng = load_engine(HaloFlowEngine(cfg, device=device), path)
+        rows = eng.cfg.array_width // eng.n_shards
+        if tuple(eng.state.t_surf.shape) != (rows, eng.cfg.array_height):
+            raise AssertionError(f"restored band {eng.state.t_surf.shape}")
+        return eng
+
+    one = HaloFlowEngine(cfg, device=device).process(ev)
+    eng = HaloFlowEngine(cfg, device=device)
+    first = eng.process(ev[:cut])
+    save_engine(eng, halo_path)
+    second = restored(halo_path).process(ev[cut:])
+    from_single = restored(single_path).process(ev[cut:])
+    return dict(one=one, first=first, second=second,
+                from_single=from_single)
