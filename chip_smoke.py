@@ -54,29 +54,43 @@ Phases, each printed with its result and seconds:
    launch counts over that run (every count is set to 0 just before it)
    and the same valid flags and scale ids as the same CLI run on the CPU
    (plain versions) on every event;
-6. the halo engine through the CLI (`--engine halo --devices 1`, every
-   halo mode of every kernel on one card) at both presets on the same
-   stream: its launch counts, and an output file equal byte for byte to
-   the single engine's card run;
-7. with two or more cards, `--engine halo --devices 2` (and 4, with four
-   cards) over NCCL at the benchmark preset, each rank on its own card:
-   the single engine's output file (phase 6 shows it is one rank's) byte
-   for byte on every line but those whose scale id differs at a float64
-   tie of the per-scale mean lengths (farms_tpu_torch/pipeline/ties.py on
-   the aperture inputs of the single engine's run). With one card it
-   prints why it did not run;
-8. `--backend perevent --preset benchmark` through the CLI on the same
+6. the halo, dp and multihost engines through the CLI at one rank
+   (`--engine halo|dp|multihost --devices 1`: every halo mode of every
+   kernel; the single engine's micro_step on one rank's event shard) at
+   both presets on the same stream: their launch counts, and output files
+   equal byte for byte to the single engine's card run;
+7. the single engine on a padded array geometry (320 x 320 in 324 x 328
+   arrays) at the benchmark preset on the first 262,144 events: launch
+   counts, every column bitwise equal to the unpadded engine's, and the
+   CPU's valid flags and scale ids on every event;
+8. with two or more cards, over NCCL with each rank on its own card, at
+   the benchmark preset against the single engine's run on cuda:0:
+   `--engine dp --devices 2` (and 4) byte for byte, `--engine halo
+   --devices 2` (and 4) byte for byte on every line but those whose scale
+   id differs at a float64 tie of the per-scale mean lengths
+   (farms_tpu_torch/pipeline/ties.py on the aperture inputs of the single
+   engine's run); with four cards a (2, 2) multihost world launched the
+   --multihost way (four processes of this script with a launcher's
+   environment, two "hosts" of two cards) whose CLI file and
+   write_flow_distributed file (the output all-gather made to raise) are
+   held as halo's; then [rates] of the single engine and of dp and
+   multihost at 2 and 4 ranks. With
+   one card it prints why it did not run (`--nccl-only` runs this phase
+   alone, after the build);
+9. `--backend perevent --preset benchmark` through the CLI on the same
    stream, card against CPU as in 5: 16 integral launches (8 steps x 2
    phases) and none of the other kernels;
-9. `--SERIAL 1 --numEvents 4096` through the CLI on the card and the CPU:
+10. `--SERIAL 1 --numEvents 4096` through the CLI on the card and the CPU:
    one `Local` line per event and one `true` line per valid event
    (captured), the [Benchmark Main] line and no output file; then the
    serial engine in-process, card against CPU on every valid flag and
    scale id;
-10. rates: FlowEngine.process on the card, per-event against dense, at
-   chunks 256, 2048 and 131072 on the stream and chunk 1 on a 4096-event
-   cut: events/s and device-busy ms per 1M events (torch.profiler), each
-   line with the card's nvidia-smi name and power limit. No bound.
+11. rates: FlowEngine.process on the card, per-event against dense, at
+   chunks 2048 and 131072 on the stream, chunk 256 on its first 131,072
+   events and chunk 1 on its first 1,024; and the single, dp and
+   multihost engines at one rank at both presets: events/s and
+   device-busy ms per 1M events (torch.profiler), each line with the
+   card's nvidia-smi name and power limit. No bound.
 
 The line before the last is the card's nvidia-smi name and power limit;
 the one before it a JSON summary of the kernels, with each kernel's bound
@@ -113,8 +127,8 @@ K7_EVENTS = 1 << 18
 K7_FIDELITY_EVENTS = 1 << 17
 SERIAL_EVENTS = 4096        # the serial CLI phase's cut of the stream
 # (chunk_size, events, profiled events) of the rates phase
-RATE_RUNS = ((1, 4096, 256), (256, STREAM_EVENTS, 16384),
-             (2048, STREAM_EVENTS, 131072),
+RATE_RUNS = ((1, 1024, 64), (256, 131072, 4096),
+             (2048, STREAM_EVENTS, 32768),
              (131072, STREAM_EVENTS, STREAM_EVENTS))
 TIMING_REPS = 30
 LONG_PLAIN_REPS = 3         # plain calls timed on the long chains
@@ -827,37 +841,91 @@ def check_main_paths(base, work):
     return results, card_files
 
 
-def check_halo_paths(base, card_files):
-    """Phase 6: `--engine halo --devices 1` through the CLI at both
-    presets on the card: every halo mode of every kernel. Its launch
-    counts, and its output file equal byte for byte to the single
-    engine's card run (at one rank the bands hold the whole sensor's
-    values and the band integral is the whole float64 integral).
-    Returns {label: (launches, rate)}."""
+def check_engine_paths(base, card_files):
+    """Phase 6: `--engine halo --devices 1` (every halo mode of
+    every kernel on one card), then `--engine dp --devices 1` and
+    `--engine multihost --devices 1` (the single engine's micro_step on
+    the event shard of one rank), through the CLI at both presets on the
+    card. Each one's launch counts, and its output file equal byte for
+    byte to the single engine's card run (at one rank the bands hold the
+    whole sensor's values and the band integral is the whole float64
+    integral). Returns {label: (launches, rate)}."""
     from farms_tpu_torch.events.io import read_flow_txt
 
     steps = STREAM_EVENTS // 131072
     results = {}
-    for preset, want in _preset_launches(steps).items():
-        label = f"halo {preset}"
-        argv = _stream_argv(base, preset) + ["--engine", "halo",
-                                             "--devices", "1"]
-        t0 = time.perf_counter()
-        (_, rate), launches = _counted(label, lambda: _run_cli(argv), want)
-        out = base + "_FARMSOut_batch.txt"
-        if not filecmp.cmp(out, card_files[preset], shallow=False):
-            got, ref = read_flow_txt(out), read_flow_txt(card_files[preset])
-            diff = (f"{len(got)} rows, not {len(ref)}" if len(got) != len(ref)
-                    else {c: int((getattr(got, c) != getattr(ref, c)).sum())
-                          for c in FLOW_COLUMNS})
-            raise AssertionError(f"{label}: output differs from the single "
-                                 f"engine's card run: {diff}")
-        _phase(f"cli {label} cuda", t0,
-               f"launches {launches}; output file equal byte for byte to "
-               f"the single engine's card run; [Benchmark Main] rate "
-               f"{rate:.1f} events/sec")
-        results[label] = (launches, rate)
+    for engine in ("halo", "dp", "multihost"):
+        for preset, want in _preset_launches(steps).items():
+            label = f"{engine} {preset}"
+            argv = _stream_argv(base, preset) + ["--engine", engine,
+                                                 "--devices", "1"]
+            t0 = time.perf_counter()
+            (_, rate), launches = _counted(label, lambda: _run_cli(argv),
+                                           want)
+            out = base + "_FARMSOut_batch.txt"
+            if not filecmp.cmp(out, card_files[preset], shallow=False):
+                got = read_flow_txt(out)
+                ref = read_flow_txt(card_files[preset])
+                diff = (f"{len(got)} rows, not {len(ref)}"
+                        if len(got) != len(ref) else
+                        {c: int((getattr(got, c) != getattr(ref, c)).sum())
+                         for c in FLOW_COLUMNS})
+                raise AssertionError(f"{label}: output differs from the "
+                                     f"single engine's card run: {diff}")
+            _phase(f"cli {label} cuda", t0,
+                   f"launches {launches}; output file equal byte for byte "
+                   f"to the single engine's card run; [Benchmark Main] rate "
+                   f"{rate:.1f} events/sec")
+            results[label] = (launches, rate)
     return results
+
+
+def check_padded(base):
+    """The single engine on a padded array geometry (the 320 x 320 sensor
+    in 324 x 328 arrays, as a sharded engine pads it) at the benchmark
+    preset on the first 262,144 events, in-process: its launch counts, the
+    same valid flags and scale ids as on the CPU on every event, and every
+    column bitwise equal to the unpadded engine's card run. Returns
+    (launches, events/s of the card run)."""
+    from farms_tpu_torch import cli
+    from farms_tpu_torch.events.io import load_events_txt
+    from farms_tpu_torch.pipeline.engine import FlowEngine
+
+    t0 = time.perf_counter()
+    args = cli.build_parser().parse_args(_stream_argv(base, "benchmark"))
+    cfg = cli.build_config(args)
+    padded = dataclasses.replace(cfg, padded_width=SENSOR + 4,
+                                 padded_height=SENSOR + 8)
+    ev = load_events_txt(base, K7_EVENTS)
+    want = _preset_launches(K7_EVENTS // 131072)["benchmark"]
+    eng = FlowEngine(padded, device="cuda")
+
+    def run():
+        start = time.perf_counter()
+        out = eng.process(ev)
+        return out, time.perf_counter() - start
+
+    (card, wall), launches = _counted("padded", run, want)
+    if tuple(eng.state.t_surf.shape) != (SENSOR + 4, SENSOR + 8):
+        raise AssertionError(f"padded state {tuple(eng.state.t_surf.shape)}")
+    plain = FlowEngine(cfg, device="cuda").process(ev)
+    for col in FLOW_COLUMNS:
+        a, b = np.asarray(getattr(card, col)), np.asarray(getattr(plain, col))
+        if a.tobytes() != b.tobytes():
+            raise AssertionError(f"padded {col}: differs from the unpadded "
+                                 "engine on the card")
+    cpu = FlowEngine(padded, device="cpu").process(ev)
+    vc, vg = cpu.r_local > 0, card.r_local > 0
+    if (vc != vg).any() or (cpu.scale != card.scale).any() or vg.sum() < 1000:
+        raise AssertionError(f"padded card vs cpu: {(vc != vg).sum()} valid "
+                             f"flags, {(cpu.scale != card.scale).sum()} scale "
+                             "ids differ")
+    _phase("padded single engine", t0,
+           f"324 x 328 arrays, {len(ev)} events: launches {launches}; every "
+           f"column bitwise equal to the unpadded engine on the card; valid "
+           f"flags ({int(vg.sum())} valid) and scale ids equal to the cpu on "
+           f"every event; {len(ev) / wall:.1f} events/sec")
+    return launches, len(ev) / wall
 
 
 def _cli_process(argv):
@@ -881,26 +949,213 @@ def _cli_process(argv):
                            out).group(1))
 
 
-def check_nccl(base, work):
-    """Phase 7: `--engine halo --devices N` over NCCL (N = 2, and 4 with
-    four cards) at the benchmark preset, against the single engine's run
-    on cuda:0 (phase 6 shows one rank's output is that run's): its output
-    file byte for byte on every line whose scale id is the single
-    engine's, and scale ids that differ only at float64 ties. Returns
-    {label: rate}; with fewer than two cards it prints why it did not
-    run."""
+def _compare_with_single(label, out, ref, ref_lines, passes, cfg,
+                         exact=False):
+    """The output file `out` against the single engine's run (ref, its
+    file's lines, the aperture inputs `passes`): byte for byte on every
+    line whose scale id is the single engine's, and scale ids that differ
+    only at float64 ties of the per-scale mean lengths (none where
+    `exact`). Returns a summary."""
+    from farms_tpu_torch.events.io import read_flow_txt
+    from farms_tpu_torch.pipeline.ties import scale_ties
+
+    with open(out) as fh:
+        lines = fh.readlines()
+    if len(lines) != len(ref_lines):
+        raise AssertionError(f"{label}: {len(lines)} rows")
+    got = read_flow_txt(out)
+    differ = ref.scale != got.scale
+    tied = differ & scale_ties(ref, got, passes, cfg)
+    if (differ & ~tied).any() or (exact and differ.any()):
+        raise AssertionError(f"{label}: {int(differ.sum())} scale ids "
+                             f"differ, {int(tied.sum())} at float64 ties")
+    other = np.array([a != b for a, b in zip(lines, ref_lines)])
+    if (other & ~differ).any():
+        raise AssertionError(
+            f"{label}: {(other & ~differ).sum()} lines with the single "
+            "engine's scale id differ from its output file")
+    return (f"output file equal byte for byte to the single engine's on "
+            f"{int((~other).sum())} of {len(ref)} lines; the other "
+            f"{int(other.sum())} differ in the scale id, {int(tied.sum())} "
+            f"float64 ties of {int(differ.sum())} scale differences")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _multihost_world(base, dist_base):
+    """Four processes launched the --multihost way, each with the
+    environment a launcher gives rank r of two hosts of two cards: RANK,
+    WORLD_SIZE = 4, LOCAL_RANK = r % 2, LOCAL_WORLD_SIZE = 2,
+    MASTER_ADDR, MASTER_PORT, and host h = r // 2's two cards visible. So
+    the grid is (tx, ev) = (2, 2), each band group on one "host". Each
+    runs `multihost_rank`; returns rank 0's output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    cards = (visible.split(",") if visible
+             else [str(c) for c in range(4)])
+    port = _free_port()
+    procs = []
+    for r in range(4):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE="4",
+                   LOCAL_RANK=str(r % 2), LOCAL_WORLD_SIZE="2",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   CUDA_VISIBLE_DEVICES=",".join(cards[2 * (r // 2):
+                                                       2 * (r // 2) + 2]))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multihost-rank",
+             base, dist_base], cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True))
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=NCCL_TIMEOUT)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+    for r, (proc, out) in enumerate(zip(procs, outs)):
+        if proc.returncode != 0:
+            raise RuntimeError(f"multihost rank {r} exited "
+                               f"{proc.returncode}:\n{out[-4000:]}")
+    return outs[0]
+
+
+def multihost_rank(base, dist_base) -> int:
+    """One rank of `_multihost_world`: the CLI at the benchmark preset
+    with --multihost --engine multihost (it joins the world from the
+    environment; rank 0 writes the output file), then
+    write_flow_distributed on a new engine, with the output all-gather
+    made to raise, into `dist_base`."""
+    from unittest import mock
+
+    import torch.distributed as dist
+    from farms_tpu_torch import cli
+    from farms_tpu_torch.events.io import load_events_txt
+    from farms_tpu_torch.parallel import multihost
+
+    argv = _stream_argv(base, "benchmark") + ["--multihost", "--engine",
+                                              "multihost"]
+    rc = cli.main(argv)
+    grid = multihost.make_global_mesh()
+    if (grid.tx, grid.ev) != (2, 2):
+        raise AssertionError(f"grid {grid.tx} x {grid.ev}, not 2 x 2")
+    args = cli.build_parser().parse_args(argv)
+    eng = multihost.MultiHostFlowEngine(cli.build_config(args), mesh=grid,
+                                        device=args.device)
+    with mock.patch.object(multihost, "gather_lanes", side_effect=(
+            AssertionError("write_flow_distributed gathered outputs"))):
+        eng.write_flow_distributed(load_events_txt(base), dist_base)
+    dist.destroy_process_group()
+    return rc
+
+
+def _engine_rate(eng, ev):
+    """(events/s of a warmed eng.process(ev), device-busy ms per 1M
+    events of another run from torch.profiler, its wall s)."""
+    import torch
+    from farms_tpu_torch.parallel import mesh
+
+    eng.process(ev[:2 * 131072])                     # warm-up
+    eng.reset()
+    mesh.barrier()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    eng.process(ev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    eng.reset()
+    busy = _busy_ms(lambda: eng.process(ev))
+    return len(ev) / wall, busy * (1 << 20) / len(ev), wall
+
+
+def _make_engine(kind, cfg):
+    """"single", "dp" (every rank), or a (tx, ev) multihost grid."""
+    from farms_tpu_torch.parallel import (MultiHostFlowEngine,
+                                          ShardedFlowEngine, mesh)
+    from farms_tpu_torch.pipeline.engine import FlowEngine
+
+    if kind == "single":
+        return FlowEngine(cfg, device="cuda")
+    if kind == "dp":
+        return ShardedFlowEngine(cfg, device="cuda")
+    return MultiHostFlowEngine(cfg, mesh=mesh.make_global_mesh(*kind),
+                               device="cuda")
+
+
+def rank_rate(kind, base, preset):
+    """A rank's `_engine_rate` of engine `kind` on the stream (parallel/
+    mesh.py `run` entry point; rank 0's is returned)."""
+    from farms_tpu_torch import cli
+    from farms_tpu_torch.events.io import load_events_txt
+
+    cfg = cli.build_config(cli.build_parser().parse_args(
+        _stream_argv(base, preset)))
+    return _engine_rate(_make_engine(kind, cfg), load_events_txt(base))
+
+
+def _rate_line(label, preset, n, rate, per_m, wall, smi):
+    line = (f"[rates] {label} {preset} ranks={n}: {rate:.1f} events/s "
+            f"({STREAM_EVENTS} events in {wall:.3f} s), device busy "
+            f"{per_m:.3f} ms per 1M events (rank 0's card); card {smi}")
+    print(line, flush=True)
+
+
+def check_engine_rates(base, smi):
+    """The single, dp and multihost engines at one rank, in-process, at
+    both presets: events/s of a warmed process() over the stream and
+    device-busy ms per 1M events (torch.profiler). Returns {label:
+    events/s}."""
+    from farms_tpu_torch import cli
+    from farms_tpu_torch.events.io import load_events_txt
+
+    ev = load_events_txt(base)
+    rates = {}
+    for preset in ("benchmark", "fidelity"):
+        cfg = cli.build_config(cli.build_parser().parse_args(
+            _stream_argv(base, preset)))
+        for kind in ("single", "dp", (1, 1)):
+            t0 = time.perf_counter()
+            label = kind if isinstance(kind, str) else "multihost"
+            rate, per_m, wall = _engine_rate(_make_engine(kind, cfg), ev)
+            _rate_line(label, preset, 1, rate, per_m, wall, smi)
+            rates[f"{label} {preset} ranks=1"] = rate
+            _phase(f"rates {label} {preset}", t0, f"{rate:.1f} events/s")
+    return rates
+
+
+def check_nccl(base, work, smi):
+    """Over NCCL, each rank on its own card, against the single engine's
+    run on cuda:0 (phase 6 shows one rank's output is that run's),
+    at the benchmark preset: `--engine halo --devices N` and `--engine dp
+    --devices N` through the CLI (N = 2, and 4 with four cards; dp byte
+    for byte, halo byte for byte on every line whose scale id is the
+    single engine's, and scale ids that differ only at float64 ties of the
+    band integral); with four cards, a (2, 2) multihost world launched the
+    --multihost way (`_multihost_world`: the CLI's file and
+    write_flow_distributed's, each as halo's); then the [rates] of the
+    single engine on cuda:0 and of dp and multihost at 2 and 4 ranks
+    (mesh.run), on the same machine. Returns {label: rate}; with
+    fewer than two cards it prints why it did not run."""
     import torch
     from farms_tpu_torch import cli
     from farms_tpu_torch.events.io import (load_events_txt, read_flow_txt,
                                            write_flow_txt)
     from farms_tpu_torch.ops import kernels
+    from farms_tpu_torch.parallel import mesh
     from farms_tpu_torch.pipeline.engine import FlowEngine
-    from farms_tpu_torch.pipeline.ties import scale_ties
 
     cards = torch.cuda.device_count()
     if cards < 2:
-        print(f"[phase nccl] not run: `--engine halo --devices 2` over NCCL "
-              f"needs 2 CUDA devices, this machine has {cards}", flush=True)
+        print(f"[phase nccl] not run: the NCCL phases (`--engine halo`, "
+              f"`--engine dp` and a multihost world over 2 or 4 ranks) "
+              f"need one CUDA device per rank, this machine has {cards}",
+              flush=True)
         return {}
     t0 = time.perf_counter()
     argv = _stream_argv(base, "benchmark")
@@ -927,35 +1182,57 @@ def check_nccl(base, work):
     _phase("nccl reference", t0, f"the single engine on cuda:0, "
            f"{int((ref.r_local > 0).sum())} valid of {len(ref)}; "
            f"{len(passes)} aperture inputs kept for the tie test")
+    out = base + "_FARMSOut_batch.txt"
     rates = {}
     for n in (2, 4):
         if n > cards:
             break
+        for engine in ("halo", "dp"):
+            t0 = time.perf_counter()
+            rate = _cli_process(argv + ["--engine", engine, "--devices",
+                                        str(n)])
+            said = _compare_with_single(f"nccl {engine} devices={n}", out,
+                                        ref, ref_lines, passes, cfg,
+                                        exact=engine == "dp")
+            _phase(f"nccl {engine} devices={n}", t0,
+                   f"{said}; [Benchmark Main] rate {rate:.1f} events/sec")
+            rates[f"{engine} benchmark devices={n}"] = rate
+    if cards >= 4:
         t0 = time.perf_counter()
-        rate = _cli_process(argv + ["--engine", "halo", "--devices", str(n)])
-        out = base + "_FARMSOut_batch.txt"
-        with open(out) as fh:
-            lines = fh.readlines()
-        if len(lines) != len(ref_lines):
-            raise AssertionError(f"nccl devices={n}: {len(lines)} rows")
-        got = read_flow_txt(out)
-        differ = ref.scale != got.scale
-        tied = differ & scale_ties(ref, got, passes, cfg)
-        if (differ & ~tied).any():
-            raise AssertionError(f"nccl devices={n}: {(differ & ~tied).sum()}"
-                                 " scale ids differ off float64 ties")
-        other = np.array([a != b for a, b in zip(lines, ref_lines)])
-        if (other & ~differ).any():
-            raise AssertionError(
-                f"nccl devices={n}: {(other & ~differ).sum()} lines with "
-                "the single engine's scale id differ from its output file")
-        _phase(f"nccl halo devices={n}", t0,
-               f"output file equal byte for byte to the single engine's on "
-               f"{int((~other).sum())} of {len(ref)} lines; the other "
-               f"{int(other.sum())} differ in the scale id, {int(tied.sum())}"
-               f" float64 ties of {int(differ.sum())} scale differences; "
-               f"[Benchmark Main] rate {rate:.1f} events/sec")
-        rates[f"halo benchmark devices={n}"] = rate
+        dist_base = os.path.join(work, "distributed")
+        said = _multihost_world(base, dist_base)
+        rate = float(re.search(r"with rate of : (\S+) events/sec",
+                               said).group(1))
+        cli_said = _compare_with_single("multihost world cli", out, ref,
+                                        ref_lines, passes, cfg)
+        dist_said = _compare_with_single(
+            "multihost world write_flow_distributed",
+            dist_base + "_FARMSOut_batch.txt", ref, ref_lines, passes, cfg)
+        _phase("nccl multihost world (2, 2)", t0,
+               f"4 processes, --multihost with a launcher's environment: "
+               f"the CLI's {cli_said}; [Benchmark Main] rate {rate:.1f} "
+               f"events/sec; write_flow_distributed (no output all-gather): "
+               f"{dist_said}")
+        rates["multihost world (2, 2) benchmark"] = rate
+    else:
+        print(f"[phase nccl multihost world] not run: a (2, 2) world needs "
+              f"4 CUDA devices, this machine has {cards}", flush=True)
+    t0 = time.perf_counter()
+    rate, per_m, wall = _engine_rate(_make_engine("single", cfg), ev)
+    _rate_line("single", "benchmark", 1, rate, per_m, wall, smi)
+    rates["single benchmark ranks=1"] = rate
+    _phase("rates single ranks=1", t0, f"{rate:.1f} events/s")
+    for n in (2, 4):
+        if n > cards:
+            break
+        for kind in ("dp", (2, n // 2)):
+            t0 = time.perf_counter()
+            label = "dp" if kind == "dp" else f"multihost {kind[0]}x{kind[1]}"
+            rate, per_m, wall = mesh.run(rank_rate, n, "cuda", kind, base,
+                                         "benchmark")
+            _rate_line(label, "benchmark", n, rate, per_m, wall, smi)
+            rates[f"{label} benchmark ranks={n}"] = rate
+            _phase(f"rates {label} ranks={n}", t0, f"{rate:.1f} events/s")
     return rates
 
 
@@ -1058,10 +1335,10 @@ def _busy_ms(fn) -> float:
 def check_rates(base, smi):
     """The per-event path against the dense path on the card (both at 2
     sub-phases and the f16 wire; one phase at chunk 1): events/s of a
-    warmed FlowEngine.process over the stream (a 4096-event cut at chunk
-    1), and device-busy ms per 1M events from torch.profiler over the
-    first `profiled` events of a fresh run. No bound: a failed run fails
-    the smoke. Returns {label: events/s}."""
+    warmed FlowEngine.process over the stream (its first 131,072 events
+    at chunk 256, 1,024 at chunk 1), and device-busy ms per 1M events
+    from torch.profiler over the first `profiled` events of a fresh run.
+    No bound: a failed run fails the smoke. Returns {label: events/s}."""
     import torch
     from farms_tpu_torch.config import FlowConfig
     from farms_tpu_torch.events.io import load_events_txt
@@ -1106,15 +1383,11 @@ def check_rates(base, smi):
     return rates
 
 
-def main() -> int:
+def _start():
+    """The card and the kernel build (phase 1); returns (kind, smi)."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; this run needs one GPU",
-              file=sys.stderr)
-        return 2
     from farms_tpu_torch.ops import _build
 
-    dev = torch.device("cuda")
     t0 = time.perf_counter()
     smi = _nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -1127,18 +1400,47 @@ def main() -> int:
     _phase("build", t0, f"{len(_build.SOURCES)} sources, one nvcc "
            f"{' '.join(_build.NVCC_FLAGS)} -c each, in parallel -> "
            f"{os.path.relpath(lib)}")
+    return kind, smi
 
+
+def nccl_only() -> int:
+    """The multi-card phases alone (`--nccl-only`): the card, the build,
+    the stream and check_nccl, for a machine with 2 or 4 cards. Prints no
+    result line."""
+    import torch
+    if torch.cuda.device_count() < 2:
+        print("chip_smoke --nccl-only: needs 2 or more GPUs",
+              file=sys.stderr)
+        return 2
+    _, smi = _start()
+    with tempfile.TemporaryDirectory() as work:
+        rates = check_nccl(write_stream(work), work, smi)
+    print(f"[rates] [Benchmark Main] events/sec by path: {rates}")
+    return 0
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this run needs one GPU",
+              file=sys.stderr)
+        return 2
+
+    dev = torch.device("cuda")
+    kind, smi = _start()
     timings = check_kernels(dev)
     halo_timings = check_halo_kernels(dev)
     check_oracle(dev)
     with tempfile.TemporaryDirectory() as work:
         base = write_stream(work)
         paths, card_files = check_main_paths(base, work)
-        paths.update(check_halo_paths(base, card_files))
-        rates = check_nccl(base, work)
+        paths.update(check_engine_paths(base, card_files))
+        paths["padded benchmark"] = check_padded(base)
+        rates = check_nccl(base, work, smi)
         paths["perevent benchmark"] = check_perevent_cli(base)
         paths["serial"] = check_serial_cli(base, dev)
         path_rates = check_rates(base, smi)
+        path_rates.update(check_engine_rates(base, smi))
     rates.update({label: rate for label, (_, rate) in paths.items()})
     entries = []
     for name, (src, line) in KERNEL_SOURCES.items():
@@ -1153,8 +1455,8 @@ def main() -> int:
             launches=sum(by_path.values()), launches_by_path=by_path,
             library_ms=None, **timings[name], **halo))
     print(f"[rates] [Benchmark Main] events/sec by path: {rates}")
-    print(f"[rates] FlowEngine.process events/sec, per-event and dense: "
-          f"{path_rates}")
+    print(f"[rates] process() events/sec, per-event and dense, and the "
+          f"single, dp and multihost engines: {path_rates}")
     print(json.dumps({"kernels": entries}))
     print(_nvidia_smi())
     print(json.dumps({"ok": True, "device": {
@@ -1164,4 +1466,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-rank"]:
+        sys.exit(multihost_rank(*sys.argv[2:4]))
+    if sys.argv[1:] == ["--nccl-only"]:
+        sys.exit(nccl_only())
     sys.exit(main())

@@ -18,13 +18,32 @@ Modes, as in the reference (main.cpp:193-209):
 
 `--backend perevent` runs the per-event formulation (use_dense=False);
 auto, pallas and dense all run the dense path, whose kernels the device
-picks. `--engine halo --devices N` runs the spatially sharded engine
-(parallel/halo.py) on N ranks: N processes over NCCL, one card each, with
-`--device cuda`, or over gloo with `--device cpu`; N of 0 or 1 runs one
-rank in this process. Every rank reads the stream; rank 0 prints and
-writes the output. The `dp`, `spatial` and `multihost` engines,
-`--multihost`, and `--SERIAL 1` on more than one halo rank are not ported
-and raise NotImplementedError.
+picks.
+
+Engines (parallel/), each on N = `--devices` ranks: N processes that this
+command spawns, over NCCL with one card each on `--device cuda`, or over
+gloo on `--device cpu`. `--devices 0` means every visible card on cuda and
+one rank on the CPU; one rank runs in this process.
+
+- `--engine single`: one device; with `--devices N > 1` it means dp, as
+  in farms_tpu.
+- `--engine dp`: event-data parallel (parallel/dp.py), surfaces
+  replicated, each micro-batch's lanes split over the ranks.
+- `--engine halo`: row bands of every surface (parallel/halo.py).
+- `--engine multihost`: both over a (tx, ev) grid of ranks
+  (parallel/multihost.py); the N spawned ranks are tx = N, ev = 1.
+- `--multihost`: this process is one rank of a world that a launcher
+  started (`torchrun` and the like: RANK, WORLD_SIZE, LOCAL_RANK,
+  LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT), joined before any device
+  use (mesh.init_distributed); `--devices` is then not read. The engine
+  runs on the whole world, the single engine as dp; the multihost engine
+  takes tx = the ranks of one host. Without a launcher it is one rank.
+
+Every rank reads the stream; rank 0 prints and writes the output. Still
+refused with NotImplementedError: `--engine spatial` (not ported, GSPMD
+tiling has no torch counterpart), `--wire sparse` (ROADMAP Queue 1 item
+8) and `--SERIAL 1` on more than one rank (serial mode has no multi-rank
+form).
 """
 from __future__ import annotations
 
@@ -34,12 +53,13 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 from farms_tpu_torch.config import FlowConfig
 from farms_tpu_torch.events.io import load_events_txt, write_flow_txt
 from farms_tpu_torch.ops import _build
-from farms_tpu_torch.parallel import mesh
-from farms_tpu_torch.parallel.halo import HaloFlowEngine
+from farms_tpu_torch.parallel import (HaloFlowEngine, MultiHostFlowEngine,
+                                      ShardedFlowEngine, mesh)
 from farms_tpu_torch.pipeline.engine import FlowEngine
 from farms_tpu_torch.pipeline.serial import SerialFlowEngine
 
@@ -131,10 +151,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="skip writing the output txt (benchmarking)")
     p.add_argument("--engine", type=str, default="single",
                    choices=["single", "dp", "spatial", "halo", "multihost"],
-                   help="sharding strategy (single and halo are ported)")
+                   help="sharding strategy: single device, event-batch data "
+                        "parallel (dp), row bands with halo exchanges "
+                        "(halo), or both over a (tx, ev) grid of ranks "
+                        "(multihost; tx = --devices, ev = 1 when this "
+                        "command spawns the ranks); spatial is not ported")
     p.add_argument("--devices", type=int, default=0,
-                   help="ranks of the halo engine (one card each on cuda; "
-                        "0 or 1 = one rank in this process)")
+                   help="ranks of the dp, halo and multihost engines, one "
+                        "card each on cuda (0 = every visible card on cuda, "
+                        "one rank on cpu; one rank runs in this process); "
+                        "with --engine single, >1 means --engine dp")
     p.add_argument("--backend", type=str, default="auto",
                    choices=["auto", "pallas", "dense", "perevent"],
                    help="compute formulation: auto/pallas/dense all run the "
@@ -142,7 +168,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "version); perevent = the per-event gather "
                         "formulation")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host run (not ported yet)")
+                   help="join the world of an external launcher (RANK, "
+                        "WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, "
+                        "MASTER_ADDR, MASTER_PORT, as torchrun sets them) "
+                        "before any device use: this process is one rank; "
+                        "without them, a world of one")
     return p
 
 
@@ -192,32 +222,46 @@ def _resolve_operating_point(args):
     return chunk, phases, ap, snaps, corr, cchain, wire
 
 
+def _spawned_ranks(args) -> int:
+    """The ranks this command starts: `--devices` for the sharded engines
+    (0: every visible card on cuda, one rank on the CPU), one for the
+    single engine with `--devices` 0 or 1 and under `--multihost`."""
+    if args.multihost:
+        return 1
+    n = args.devices
+    if n == 0 and args.engine != "single":
+        n = (torch.cuda.device_count() if args.device.startswith("cuda")
+             else 1)
+    return max(1, n)
+
+
 def _refuse_unported(args) -> None:
-    if args.SERIAL == 1 and args.engine == "halo" and args.devices > 1:
+    world = (int(os.environ.get("WORLD_SIZE", "1")) if args.multihost
+             else _spawned_ranks(args))
+    if args.SERIAL == 1 and world > 1:
         raise NotImplementedError(
             "--SERIAL 1 runs one event at a time on one device; it has no "
             "multi-rank form")
-    if args.engine not in ("single", "halo"):
+    if args.engine == "spatial":
         raise NotImplementedError(
-            f"--engine {args.engine} is not ported (ROADMAP Queue 1 item "
-            "11; spatial is on the do-not-port list)")
-    if args.engine == "single" and args.devices > 1:
-        raise NotImplementedError(
-            "--devices > 1 needs --engine halo (the dp engine is not ported "
-            "yet, ROADMAP Queue 1 item 11)")
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost is not ported yet (ROADMAP Queue 1 item 11)")
+            "--engine spatial is not ported (ROADMAP Queue 1, \"Do not "
+            "port\": GSPMD tiling has no torch counterpart; --engine halo "
+            "shards the rows explicitly)")
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
-    if args.engine == "halo" and args.devices > 1:
+    if args.multihost:
+        # this process is one rank of the launcher's world
+        mesh.init_distributed(device=args.device)
+        return _run(args)
+    n = _spawned_ranks(args)
+    if n > 1:
         if args.device.startswith("cuda"):
             # one build before the ranks start, not one per rank
             _build.build()
-        return mesh.run(_run, args.devices, args.device, args)
+        return mesh.run(_run, n, args.device, args)
     return _run(args)
 
 
@@ -286,6 +330,10 @@ def _run(args) -> int:
         engine = SerialFlowEngine(cfg, device=args.device)
     elif args.engine == "halo":
         engine = HaloFlowEngine(cfg, device=args.device)
+    elif args.engine == "multihost":
+        engine = MultiHostFlowEngine(cfg, device=args.device)
+    elif args.engine == "dp" or mesh.rank_and_size()[1] > 1:
+        engine = ShardedFlowEngine(cfg, device=args.device)
     else:
         engine = FlowEngine(cfg, device=args.device)
 

@@ -203,8 +203,6 @@ def require_slice(cfg: FlowConfig) -> None:
     missing = []
     if cfg.wire == "sparse":
         missing.append("wire='sparse' (ROADMAP Queue 1 item 8)")
-    if cfg.padded_width is not None or cfg.padded_height is not None:
-        missing.append("padded array geometry (ROADMAP Queue 1 item 11)")
     if cfg.width * cfg.height >= 1 << 30:
         missing.append("sensors of 2^30 pixels or more (the 5-row batch "
                        "layout, ROADMAP Queue 1 item 5)")

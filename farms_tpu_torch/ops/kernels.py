@@ -73,12 +73,12 @@ def local_flow_shape(filter_size: int) -> dict:
 
 def _band_rows(t: torch.Tensor, name: str, cfg: FlowConfig, halo: int,
                row_offset: int) -> int:
-    """Core rows of a [rows + 2*halo, Ha] band (or of a [W, H] surface
-    without halo), checked against the config's array geometry."""
+    """Core rows of a [rows + 2*halo, Ha] band (or of the [array W, Ha]
+    surface without halo), checked against the config's array geometry."""
     if t.dim() != 2:
         raise ValueError(f"{name} must be 2-D, got {tuple(t.shape)}")
     if not halo:
-        expect = (cfg.width, cfg.height)
+        expect = (cfg.array_width, cfg.array_height)
     else:
         rows = t.shape[0] - 2 * halo
         if rows < 1 or row_offset < 0 or row_offset + rows > cfg.array_width:
@@ -96,11 +96,12 @@ def local_flow(chain: torch.Tensor, center: torch.Tensor, cfg: FlowConfig,
                fold_center: bool = True, halo: int = 0, row_offset: int = 0):
     """Local plane fit; contract of dense_flow.local_flow_core.
 
-    chain int32 [S, W, H], center int32 [W, H] (stamp1); fold_center=False
-    is the correction mode. Halo mode (halo >= R, parallel/halo.py): chain
+    chain int32 [S, W, H], center int32 [W, H] (stamp1), at the array
+    geometry [array_width, array_height] of a padded config (its pad
+    cells never written); fold_center=False is the correction mode. Halo mode (halo >= R, parallel/halo.py): chain
     [S, rows + 2*halo, Ha] and center [rows + 2*halo, Ha] bands of a row
     shard whose first global row is row_offset. Returns accept i32, a f32,
-    b f32, dtdp f32, cand i32, each [W, H], or [rows, Ha] in halo mode.
+    b f32, dtdp f32, cand i32, each shaped as center's core rows.
     """
     if center.device.type == "cpu":
         return local_flow_core(chain, center, cfg, fold_center, halo,
@@ -170,7 +171,8 @@ def aperture(flow_len: torch.Tensor, flow_vx: torch.Tensor,
              integ=None):
     """Multi-scale aperture pooling; contract of dense_flow.dense_aperture.
 
-    f32 [W, H] flow surfaces in; (true_vx f32, true_vy f32, scale i32) out.
+    f32 [W, H] flow surfaces (the array geometry of a padded config) in;
+    (true_vx f32, true_vy f32, scale i32) out.
     The integral kernel builds the float64 integral image (`integral`),
     then the pool kernel pools every scale. Band mode (parallel/halo.py): `integ` is
     the float64 integral band [4, rows + 2*halo + 1, Ha + 1] of a row
@@ -189,7 +191,8 @@ def aperture(flow_len: torch.Tensor, flow_vx: torch.Tensor,
         raise ValueError(f"halo {halo} < max_window + 1 "
                          f"{cfg.max_window + 1}")
     dev = flow_len.device
-    shape = (cfg.width, cfg.height) if integ is None else flow_len.shape
+    shape = ((cfg.array_width, cfg.array_height) if integ is None
+             else flow_len.shape)
     if integ is not None and (flow_len.dim() != 2
                               or shape[1] != cfg.array_height):
         raise ValueError(f"flow_len has shape {tuple(shape)}, expected "

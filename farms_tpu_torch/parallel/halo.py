@@ -20,6 +20,11 @@ Every rank is fed the same chronological stream and packs it the same way
 same order; rank 0 returns the FlowOutput. A run of one rank has no
 process group: exchanges zero-pad and the band integral is built locally,
 so every halo mode of every kernel runs on one card.
+
+The shard step `_step` runs on a band group (`mesh.Axis`: the ranks that
+split the rows), which is the whole world here and one line of the (tx,
+ev) grid in parallel/multihost.py, and gathers the outputs of a window of
+lanes: all of them here, an event shard's there.
 """
 from __future__ import annotations
 
@@ -36,28 +41,34 @@ from farms_tpu_torch.parallel import mesh
 from farms_tpu_torch.pipeline.engine import (FlowEngine, _coarse,
                                              _empty_output, _lane_table,
                                              _merge_lanes, _phasing,
-                                             _scatter, _take, wire_maps,
-                                             wire_n_main_rows, wire_pack)
-from farms_tpu_torch.state.surfaces import SurfaceState, kill_stale_flow
+                                             _scatter, _take, lane_range,
+                                             wire_maps, wire_n_main_rows,
+                                             wire_pack)
+from farms_tpu_torch.state.surfaces import (SurfaceState, kill_stale_flow,
+                                            kill_stale_flow_in_phase)
 
 
-def _ring(sends, recvs) -> None:
+def _ring(sends, recvs, band: mesh.Axis) -> None:
     """Post point-to-point sends [(tensor, dst)] and receives
-    [(tensor, src)] as one batch and wait for all of them."""
-    ops = ([dist.P2POp(dist.isend, t, peer) for t, peer in sends]
-           + [dist.P2POp(dist.irecv, t, peer) for t, peer in recvs])
+    [(tensor, src)] (dst, src: indices on the band) as one batch in the
+    band's group and wait for all of them."""
+    ops = ([dist.P2POp(dist.isend, t, band.ranks[i], band.group)
+            for t, i in sends]
+           + [dist.P2POp(dist.irecv, t, band.ranks[i], band.group)
+              for t, i in recvs])
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
 
 
-def exchange_halo(arr: torch.Tensor, h: int, n: int, rank: int,
+def exchange_halo(arr: torch.Tensor, h: int, band: mesh.Axis,
                   below: torch.Tensor | None = None) -> torch.Tensor:
-    """Extend a [..., rows, H] shard with h rows from each side of the ring.
+    """Extend a [..., rows, H] shard with h rows from each side of the ring
+    of the band's n ranks (this one at index `rank` of them).
 
     Returns [..., rows + 2h, H]; bands past the global sensor edge are
-    zero above the sensor (rank 0's top) and zero or, if given, `below`
-    ([..., 1, H], broadcast) under it (rank n-1's bottom). Both stencil
+    zero above the sensor (index 0's top) and zero or, if given, `below`
+    ([..., 1, H], broadcast) under it (index n-1's bottom). Both stencil
     stages read zero rows as "outside the sensor". A band deeper than a
     shard (h > rows) comes from several ring hops: hop j fetches the rows
     needed from the shard j ranks away. Hops that would cross the sensor
@@ -66,6 +77,7 @@ def exchange_halo(arr: torch.Tensor, h: int, n: int, rank: int,
     """
     if h == 0:
         return arr
+    n, rank = band.size, band.index
     rows = arr.shape[-2]
 
     def fill(take, value):
@@ -90,12 +102,12 @@ def exchange_halo(arr: torch.Tensor, h: int, n: int, rank: int,
             recvs.append((prev, rank - j))
         above.insert(0, prev)
         under.append(nxt)
-    _ring(sends, recvs)
+    _ring(sends, recvs, band)
     return torch.cat(above + [arr] + under, -2)
 
 
-def assemble_integral_band(flow_len, flow_vx, flow_vy, n: int, A: int,
-                           rank: int) -> torch.Tensor:
+def assemble_integral_band(flow_len, flow_vx, flow_vy, band: mesh.Axis,
+                           A: int) -> torch.Tensor:
     """The float64 global-integral band [4, rows + 2A + 1, Ha + 1] of this
     shard (JAX: integral partials, farms_tpu/parallel/halo.py:78).
 
@@ -113,12 +125,14 @@ def assemble_integral_band(flow_len, flow_vx, flow_vy, n: int, A: int,
     the whole-sensor integral's values exactly.
     """
     L = kernels.integral(flow_len, flow_vx, flow_vy)   # [4, rows + 1, Ha + 1]
+    n, rank = band.size, band.index
     if n == 1:
         own, total = L[:, 1:], L[:, -1:]
     else:
         cols = L.shape[2]
         allcs = L.new_empty((n * 4, cols))
-        dist.all_gather_into_tensor(allcs, L[:, -1].contiguous())
+        dist.all_gather_into_tensor(allcs, L[:, -1].contiguous(),
+                                    group=band.group)
         allcs = allcs.view(n, 4, cols)
         offset = torch.zeros_like(allcs[0])
         for k in range(n):                            # left fold, rank order
@@ -127,7 +141,7 @@ def assemble_integral_band(flow_len, flow_vx, flow_vy, n: int, A: int,
             offset = offset + allcs[k]
         total = offset[:, None, :]
     # the kernel reads the band as one contiguous float64 array
-    return exchange_halo(own, A + 1, n, rank, below=total)[:, :-1].contiguous()
+    return exchange_halo(own, A + 1, band, below=total)[:, :-1].contiguous()
 
 
 def _own(lanes: torch.Tensor, in_core: torch.Tensor) -> torch.Tensor:
@@ -149,7 +163,7 @@ def _local_fit(chain, center, cfg, row0, fold_center=True):
 
 
 def _corr_assemble(cfg: FlowConfig, chain_ext, t_c2, loc_maps, ap_tables,
-                   rows, row0, lx, ys, in_core, cflag, grp):
+                   rows, row0, lx, ys, in_core, cflag, grp, lane, head):
     """Sharded rank-2 correction pass + merged-table lane assembly.
 
     The shard-local form of micro_step's correction (JAX:
@@ -157,9 +171,10 @@ def _corr_assemble(cfg: FlowConfig, chain_ext, t_c2, loc_maps, ap_tables,
     correction mode on the chunk's exchanged chain (pass 1's bands, no new
     collective) against this shard's rows of the host-built center
     surface, and every lane reads its plane-fit rows from its phase's
-    table, or the correction table where flagged, and its true-flow rows
-    from its aperture pass's table. Off-shard lanes read a clamped row and
-    are zeroed. Returns the [5, m] f32 lane stack.
+    table (`grp`), or the correction table where flagged, and its
+    true-flow rows from its aperture pass's table (`lane`, the lanes'
+    indices among the step's `head`). Off-shard lanes read a clamped row
+    and are zeroed. Returns the [5, k] f32 lane stack of the k lanes.
     """
     R = cfg.support_radius
     Ha = cfg.array_height
@@ -171,35 +186,36 @@ def _corr_assemble(cfg: FlowConfig, chain_ext, t_c2, loc_maps, ap_tables,
     pix = lx.clamp(0, rows - 1).to(torch.int64) * Ha + ys.to(torch.int64)
     table = torch.where(cflag, len(loc_all) - 1, grp)
     loc = _own(_take(loc_all, table * RH + pix), in_core)
-    m = lx.shape[0]
-    lane = torch.arange(m, device=lx.device)
-    tf = _own(_take(ap_tables, lane // (m // len(ap_tables)) * RH + pix),
+    tf = _own(_take(ap_tables, lane // (head // len(ap_tables)) * RH + pix),
               in_core)
     return _merge_lanes(loc, tf, cfg, packed=False)
 
 
-def _step(state: SurfaceState, batch: torch.Tensor, cfg: FlowConfig,
-          n: int, rank: int, t_c2=None, bs: int = 0):
-    """One micro-step of one shard (JAX: halo_micro_step :374 with bs = 0,
-    halo_micro_step_sharded :201 with bs > 0).
+def _step(state: SurfaceState, x, y, t, is_winner, cfg: FlowConfig,
+          band: mesh.Axis, cflag=None, t_c2=None, bs: int = 0,
+          lanes: tuple[int, int] | None = None):
+    """One micro-step of one shard on its band group (JAX:
+    halo_micro_step :374 with bs = 0, halo_micro_step_sharded :201 with
+    bs > 0).
 
-    `batch` is the int32 5-row layout (x, y, t, lane_valid, winner) of
-    HaloFlowEngine.pack_halo, [6, ...] with the corrected-lane flags when
-    `t_c2` (this shard's rows of the rank-2 center surface) is given:
-    - bs = 0, replicated: every rank gets all m lanes; outputs are summed
-      over ranks (each lane has one non-zero contribution, its owner's);
+    x, y, t, is_winner are the step's lanes (int32, bool), cflag the
+    corrected-lane flags (bool) when `t_c2` (this shard's rows of the
+    rank-2 center surface) is given:
+    - bs = 0, replicated: every rank gets all m lanes and gathers those
+      of the window `lanes` = (lo, hi) (all by default); the outputs are
+      summed over the band (each lane has one non-zero contribution, its
+      owner's);
     - bs > 0, owner-sharded: this rank's own P*S sub-group segments of bs
       lanes plus a P-lane tail whose stamp row holds the global phase start
       stamps for the staleness kill; no sum, the lanes stay on their rank.
     Returns the new state and the wire pair (int32 [C, k], uint8 [k]).
     """
+    n = band.size
     rows = cfg.array_width // n
     Ha = cfg.array_height
-    row0 = rank * rows
+    row0 = band.index * rows
     R = cfg.support_radius
     A = cfg.max_window + 1
-    x, y, t = batch[0], batch[1], batch[2]
-    is_winner = batch[4] != 0
     corr = t_c2 is not None
     if bs:
         P, S = cfg.sub_phases, cfg.causal_snapshots
@@ -213,9 +229,15 @@ def _step(state: SurfaceState, batch: torch.Tensor, cfg: FlowConfig,
         mp = head // P
         ms = mp // S
         t0s = t[::mp][:P]
+    lo, hi = lanes or (0, head)
     coarse = _coarse(cfg, P)
     seg = S * bs if bs else mp          # lanes of one phase
     sub = bs if bs else ms              # lanes of one scatter sub-group
+    # fine aperture groups per phase (micro_step's rule; replicated layout)
+    kf = max(1, cfg.aperture_sub_phases // P) if cfg.aperture_sub_phases else 1
+    if bs or seg % kf or corr:
+        kf = 1
+    mg = seg // kf
 
     t_surf, epoch = state.t_surf, state.epoch
     flow_len, flow_vx, flow_vy = state.flow_len, state.flow_vx, state.flow_vy
@@ -233,7 +255,7 @@ def _step(state: SurfaceState, batch: torch.Tensor, cfg: FlowConfig,
     # phase p+1's exchange with phase p's compute). A phase's pre-scatter
     # band is the previous phase's post band: one exchange per sub-group.
     phases = []
-    pre_ext = exchange_halo(t_surf, R, n, rank)
+    pre_ext = exchange_halo(t_surf, R, band)
     chain_ext = [pre_ext] if corr else None
     for p in range(P):
         ep_val = state.step * P + p
@@ -243,10 +265,10 @@ def _step(state: SurfaceState, batch: torch.Tensor, cfg: FlowConfig,
             t_surf = _scatter(t_surf, wpix[ssl], t1[ssl])
             epoch = _scatter(epoch, wpix[ssl], ep_val)
             if si < S - 1:
-                mids.append(exchange_halo(t_surf, R, n, rank))
+                mids.append(exchange_halo(t_surf, R, band))
                 if corr and si in links:
                     chain_ext.append(mids[-1])
-        post_ext = exchange_halo(t_surf, R, n, rank)
+        post_ext = exchange_halo(t_surf, R, band)
         if corr:                        # the last sub-group always links
             chain_ext.append(post_ext)
         phases.append((epoch == ep_val, pre_ext, mids, post_ext))
@@ -255,7 +277,8 @@ def _step(state: SurfaceState, batch: torch.Tensor, cfg: FlowConfig,
     # ---- pass 2: stencil compute per phase ----
     loc_maps, ap_tables, pending, lanes_out = [], [], [], []
     for p, (written, pre_ext, mids, post_ext) in enumerate(phases):
-        lsl = slice(p * seg, (p + 1) * seg)
+        # the phase's gathered lanes
+        lsl = lane_range(slice(p * seg, (p + 1) * seg), (lo, hi))
         # staleness kill at aperture-group cadence, against the phase's
         # pre-scatter surface: the core rows of its pre band
         if not coarse or p % (P // coarse) == 0:
@@ -273,56 +296,127 @@ def _step(state: SurfaceState, batch: torch.Tensor, cfg: FlowConfig,
         if corr:
             # every lane is assembled after the correction pass
             loc_maps.append(loc)
-        elif coarse:
+        elif coarse and lsl:
             # this group's plane-fit lanes wait for their pooling pass
             pending.append((lsl, _own(onehot_gather(
                 loc, safe_lx[lsl], y[lsl], rows, Ha), in_core[lsl])))
         if coarse and (p + 1) % (P // coarse):
             continue
-        integ = assemble_integral_band(flow_len, flow_vx, flow_vy, n, A,
-                                       rank)
-        tvx_map, tvy_map, scale_map = kernels.aperture(
-            flow_len, flow_vx, flow_vy, cfg, halo=A, integ=integ)
-        if corr:
-            ap_tables.append(_lane_table(tvx_map, tvy_map, scale_map, cfg,
-                                         packed=False))
-        elif coarse:
-            amaps = _lane_table(tvx_map, tvy_map, scale_map, cfg,
-                                packed=False)
-            for gsl, gloc in pending:
-                tf = _own(onehot_gather(amaps, safe_lx[gsl], y[gsl], rows,
-                                        Ha), in_core[gsl])
-                lanes_out.append(_merge_lanes(gloc, tf, cfg, packed=False))
-            pending = []
-        else:
-            # packed=False: these lanes are summed across ranks below, and
-            # f32 arithmetic on packed f16-pair words is not bit-preserving
-            maps = wire_maps(gate_map, vx_map, vy_map, tvx_map, tvy_map,
-                             scale_map, cfg, packed=False)
-            lanes_out.append(_own(onehot_gather(
-                maps, safe_lx[lsl], y[lsl], rows, Ha), in_core[lsl]))
+        for g in range(kf):
+            if g:
+                # fine phasing: the in-phase kill against the phase's
+                # post-scatter surface, the core rows of its post band
+                flow_len = kill_stale_flow_in_phase(
+                    flow_len, post_ext[R:R + rows], t[p * seg + g * mg], cfg)
+            integ = assemble_integral_band(flow_len, flow_vx, flow_vy, band,
+                                           A)
+            tvx_map, tvy_map, scale_map = kernels.aperture(
+                flow_len, flow_vx, flow_vy, cfg, halo=A, integ=integ)
+            if corr:
+                ap_tables.append(_lane_table(tvx_map, tvy_map, scale_map,
+                                             cfg, packed=False))
+                continue
+            if coarse:
+                amaps = _lane_table(tvx_map, tvy_map, scale_map, cfg,
+                                    packed=False)
+                for gsl, gloc in pending:
+                    tf = _own(onehot_gather(amaps, safe_lx[gsl], y[gsl],
+                                            rows, Ha), in_core[gsl])
+                    lanes_out.append(_merge_lanes(gloc, tf, cfg,
+                                                  packed=False))
+                pending = []
+                continue
+            gsl = lane_range(slice(p * seg + g * mg, p * seg + (g + 1) * mg),
+                             (lo, hi))
+            if gsl:
+                # packed=False: these lanes are summed across ranks below,
+                # and f32 arithmetic on packed f16-pair words is not
+                # bit-preserving
+                maps = wire_maps(gate_map, vx_map, vy_map, tvx_map, tvy_map,
+                                 scale_map, cfg, packed=False)
+                lanes_out.append(_own(onehot_gather(
+                    maps, safe_lx[gsl], y[gsl], rows, Ha), in_core[gsl]))
 
     if corr:
-        lane = torch.arange(head, device=x.device)
-        lanes = _corr_assemble(cfg, chain_ext, t_c2, loc_maps, ap_tables,
-                               rows, row0, lx[:head], y[:head],
-                               in_core[:head], batch[5, :head] != 0,
-                               lane // seg)
+        lane = torch.arange(lo, hi, device=x.device)
+        out_lanes = _corr_assemble(cfg, chain_ext, t_c2, loc_maps, ap_tables,
+                                   rows, row0, lx[lo:hi], y[lo:hi],
+                                   in_core[lo:hi], cflag[lo:hi],
+                                   lane // seg, lane, head)
     else:
-        lanes = torch.cat(lanes_out, 1)
+        out_lanes = torch.cat(lanes_out, 1)
+    k = hi - lo
     if not bs and n > 1:
         # one non-zero (NaN-scrubbed) contribution per lane: the sum is
         # exact. A reduce-scatter leaves each rank its 1/n of the lanes;
-        # where n does not divide m every rank sums them all.
-        if head % n == 0:
-            part = lanes.new_empty((head // n, 5))
-            dist.reduce_scatter_tensor(part, lanes.t().contiguous())
-            lanes = part.t()
+        # where n does not divide them every rank sums them all.
+        if k % n == 0:
+            part = out_lanes.new_empty((k // n, 5))
+            dist.reduce_scatter_tensor(part, out_lanes.t().contiguous(),
+                                       group=band.group)
+            out_lanes = part.t()
         else:
-            dist.all_reduce(lanes)
-    out = wire_pack(lanes[0], lanes[1], lanes[2], lanes[3], lanes[4], cfg)
+            dist.all_reduce(out_lanes, group=band.group)
+    out = wire_pack(out_lanes[0], out_lanes[1], out_lanes[2], out_lanes[3],
+                    out_lanes[4], cfg)
     return SurfaceState(t_surf, epoch, flow_len, flow_vx, flow_vy,
                         state.step + 1), out
+
+
+def gather_lanes(main: torch.Tensor, aux: torch.Tensor, axis: mesh.Axis,
+                 to_all: bool = False):
+    """One call's wire blocks (int32 [steps, C, k], uint8 [steps, k]) of
+    every rank on `axis`, laid end to end along the lane axis in axis
+    order, as host arrays: on the axis's first rank (None elsewhere), or
+    with `to_all` on every rank."""
+    if axis.size == 1:
+        return main.cpu().numpy(), aux.cpu().numpy()
+    block = torch.cat([main, aux.to(torch.int32)[:, None]], 1)
+    if to_all:
+        parts = [torch.empty_like(block) for _ in range(axis.size)]
+        dist.all_gather(parts, block, group=axis.group)
+    else:
+        first = axis.index == 0
+        parts = ([torch.empty_like(block) for _ in range(axis.size)]
+                 if first else None)
+        dist.gather(block, parts, dst=axis.ranks[0], group=axis.group)
+        if not first:
+            return None
+    block = torch.cat(parts, 2).cpu().numpy()
+    return block[:, :-1], block[:, -1].astype(np.uint8)
+
+
+def band_of(state: SurfaceState, band: mesh.Axis,
+            cfg: FlowConfig) -> SurfaceState:
+    """This rank's rows of an array-geometry [W, Ha] state: band index i
+    of the band's n ranks holds rows [i * W / n, (i + 1) * W / n)."""
+    rows = cfg.array_width // band.size
+    sl = slice(band.index * rows, (band.index + 1) * rows)
+    return SurfaceState(*(a[sl].contiguous() for a in (
+        state.t_surf, state.epoch, state.flow_len, state.flow_vx,
+        state.flow_vy)), state.step)
+
+
+def gather_bands(state: SurfaceState, band: mesh.Axis,
+                 cfg: FlowConfig) -> SurfaceState | None:
+    """The bands of every rank of `band` gathered on its first rank at the
+    semantic [W, H] geometry (the padding stripped; pad cells are never
+    written); None on the band's other ranks."""
+    f32 = [a.view(torch.int32) for a in
+           (state.flow_len, state.flow_vx, state.flow_vy)]
+    block = torch.stack([state.t_surf, state.epoch, *f32])  # [5, rows, Ha]
+    if band.size > 1:
+        first = band.index == 0
+        parts = ([torch.empty_like(block) for _ in range(band.size)]
+                 if first else None)
+        dist.gather(block, parts, dst=band.ranks[0], group=band.group)
+        if not first:
+            return None
+        block = torch.cat(parts, 1)
+    block = block[:, :cfg.width, :cfg.height].contiguous()
+    return SurfaceState(block[0], block[1], block[2].view(torch.float32),
+                        block[3].view(torch.float32),
+                        block[4].view(torch.float32), state.step)
 
 
 class HaloFlowEngine(FlowEngine):
@@ -341,14 +435,14 @@ class HaloFlowEngine(FlowEngine):
                 "the halo engine supports aperture_sub_phases equal to or a "
                 "divisor of sub_phases (coarse pooling); finer aperture "
                 "phasing is a FlowEngine feature")
-        rank, world_size = mesh.rank_and_size()
-        self.rank, self.n_shards = rank, world_size
+        self.band = mesh.Axis.world()
+        self.rank, self.n_shards = self.band.index, self.band.size
         # the base checks (require_slice, kernel build) see the semantic
         # geometry; the shards hold the padded one: non-divisible widths
         # pad up, and the pad rows are never written
         super().__init__(cfg, device)
-        self.cfg = cfg.padded_to(world_size)
-        n = world_size
+        n = self.n_shards
+        self.cfg = cfg.padded_to(n)
         blk = cfg.chunk_size // (cfg.sub_phases * cfg.causal_snapshots)
         # owner-sharded sub-group segments: 2x slack plus a small constant
         # (binomial fluctuation dominates tiny sub-groups)
@@ -357,16 +451,7 @@ class HaloFlowEngine(FlowEngine):
 
     def reset(self):
         super().reset()
-        cfg = self.cfg
-        shape = (cfg.array_width // self.n_shards, cfg.array_height)
-        dev = self.device
-        self.state = SurfaceState(
-            t_surf=torch.zeros(shape, dtype=torch.int32, device=dev),
-            epoch=torch.full(shape, -1, dtype=torch.int32, device=dev),
-            flow_len=torch.zeros(shape, dtype=torch.float32, device=dev),
-            flow_vx=torch.zeros(shape, dtype=torch.float32, device=dev),
-            flow_vy=torch.zeros(shape, dtype=torch.float32, device=dev),
-            step=0)
+        self.state = band_of(self.state, self.band, self.cfg)
 
     def set_state(self, state: SurfaceState) -> None:
         """Adopt a whole-sensor [W, H] state (a restored checkpoint): each
@@ -374,40 +459,12 @@ class HaloFlowEngine(FlowEngine):
         written) and this rank keeps its band of rows. The host stamp
         mirror takes the whole sensor: every rank packs the whole stream."""
         super().set_state(state)
-        cfg = self.cfg
-        rows = cfg.array_width // self.n_shards
-        pad = (0, cfg.array_height - cfg.height, 0,
-               cfg.array_width - cfg.width)
-
-        def band(a, fill):
-            a = F.pad(a, pad, value=fill) if any(pad) else a
-            return a[self.rank * rows:(self.rank + 1) * rows].contiguous()
-
-        self.state = SurfaceState(
-            band(state.t_surf, 0), band(state.epoch, -1),
-            band(state.flow_len, 0.0), band(state.flow_vx, 0.0),
-            band(state.flow_vy, 0.0), state.step)
+        self.state = band_of(self.state, self.band, self.cfg)
 
     def whole_state(self) -> SurfaceState | None:
         """The bands of every rank gathered on rank 0 at the semantic
-        [W, H] geometry (the padding stripped; pad cells are never
-        written); None on the other ranks."""
-        cfg = self.cfg
-        st = self.state
-        f32 = [a.view(torch.int32) for a in
-               (st.flow_len, st.flow_vx, st.flow_vy)]
-        block = torch.stack([st.t_surf, st.epoch, *f32])   # [5, rows, Ha]
-        if self.n_shards > 1:
-            parts = ([torch.empty_like(block) for _ in range(self.n_shards)]
-                     if self.rank == 0 else None)
-            dist.gather(block, parts, dst=0)
-            if self.rank:
-                return None
-            block = torch.cat(parts, 1)
-        block = block[:, :cfg.width, :cfg.height].contiguous()
-        return SurfaceState(block[0], block[1], block[2].view(torch.float32),
-                            block[3].view(torch.float32),
-                            block[4].view(torch.float32), st.step)
+        [W, H] geometry; None on the other ranks."""
+        return gather_bands(self.state, self.band, self.cfg)
 
     # ---- host-side packing -------------------------------------------------
     def pack_halo(self, ev: EventBatch, steps_per_call: int | None = None):
@@ -439,9 +496,7 @@ class HaloFlowEngine(FlowEngine):
         if cfg.center_correction:
             fl, ctr = self.pack_r2(ev, steps_per_call=steps_per_call)
             rows_5.append(fl)
-            centers = np.pad(ctr, ((0, 0), (0, 0),
-                                   (0, cfg.array_width - cfg.width),
-                                   (0, cfg.array_height - cfg.height)))
+            centers = self.array_centers(ctr)
         packed = np.stack(rows_5, axis=2).astype(np.int32)
         n = self.n_shards
         if n == 1:
@@ -514,9 +569,10 @@ class HaloFlowEngine(FlowEngine):
                     centers[c][:, rank * rows:(rank + 1) * rows])).to(
                         self.device))
             mains, auxs = [], []
-            for i in range(chunk.shape[0]):
+            for i, b in enumerate(chunk):
                 self.state, (main, aux) = _step(
-                    self.state, chunk[i], cfg, n, rank,
+                    self.state, b[0], b[1], b[2], b[4] != 0, cfg, self.band,
+                    None if t_c2 is None else b[5] != 0,
                     None if t_c2 is None else t_c2[i], bs)
                 mains.append(main)
                 auxs.append(aux)
@@ -532,19 +588,11 @@ class HaloFlowEngine(FlowEngine):
         Each rank holds its lanes of every step: its reduce-scatter slice
         or its owner-sharded segments, in rank order along the lane axis;
         after an all-reduce (n does not divide m) every rank holds all."""
-        n = self.n_shards
-        if n == 1 or (not sharded and self.cfg.chunk_size % n):
+        if not sharded and self.cfg.chunk_size % self.n_shards:
             if self.rank:
                 return None
             return main.cpu().numpy(), aux.cpu().numpy()
-        block = torch.cat([main, aux.to(torch.int32)[:, None]], 1)
-        parts = ([torch.empty_like(block) for _ in range(n)]
-                 if self.rank == 0 else None)
-        dist.gather(block, parts, dst=0)
-        if self.rank:
-            return None
-        block = torch.cat(parts, 2).cpu().numpy()
-        return block[:, :-1], block[:, -1].astype(np.uint8)
+        return gather_lanes(main, aux, self.band)
 
     def _unpack(self, blocks, ev: EventBatch, nn: int, perm) -> FlowOutput:
         """Stream-order wire blocks from the gathered ones (JAX:

@@ -1,16 +1,26 @@
 """Ranks of a multi-device run on torch.distributed.
 
-Counterpart of `farms_tpu.parallel.mesh`: where JAX names a device mesh
-inside one program, a torch run is one process per rank in one process
-group. `run` starts the ranks (spawned processes, a `file://` rendezvous in
-a temporary directory, so concurrent runs never race for a TCP port) with
-NCCL on `cuda:rank` on the card and gloo on the CPU, and `rank_and_size`
-tells the code in a rank where it is. A run of one rank stays in the
-calling process and has no process group at all: the one-rank branches of
-parallel/halo.py issue no collective.
+Counterpart of `farms_tpu.parallel.mesh` and of the process setup of
+`farms_tpu.parallel.multihost`: where JAX names a device mesh inside one
+program, a torch run is one process per rank in one process group.
+
+- `run` starts the ranks of one host (spawned processes, a `file://`
+  rendezvous in a temporary directory, so concurrent runs never race for a
+  TCP port) with NCCL on `cuda:rank` on the card and gloo on the CPU;
+- `init_distributed` joins a world that a launcher started (`torchrun`
+  and the like: one process per rank, on one or more hosts);
+- `rank_and_size` tells the code in a rank where it is, and
+  `make_global_mesh` lays the ranks out as a (tx, ev) grid: `tx` shards
+  the sensor rows (parallel/halo.py), `ev` the lanes of a micro-batch
+  (parallel/dp.py); `Axis` is one line of that grid and its process
+  group.
+
+A run of one rank stays in the calling process and has no process group
+at all: the one-rank branches issue no collective.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import tempfile
@@ -37,6 +47,131 @@ def barrier() -> None:
     """Wait for every rank of this process's group (no-op without one)."""
     if rank_and_size()[1] > 1:
         dist.barrier()
+
+
+def init_distributed(coordinator_address: str | None = None,
+                     num_processes: int | None = None,
+                     process_id: int | None = None,
+                     device: str | None = None) -> None:
+    """Join the world of an externally launched run (JAX:
+    farms_tpu/parallel/multihost.py:38).
+
+    Each argument left None comes from the launcher's environment, as
+    `torchrun` sets it: WORLD_SIZE, RANK, LOCAL_RANK, and MASTER_ADDR /
+    MASTER_PORT for the rendezvous (`coordinator_address` "host:port"
+    replaces them). `device` "cuda" (the default where a card is visible)
+    binds this rank to cuda:LOCAL_RANK with NCCL, "cpu" takes gloo. Does
+    nothing where a group exists already or the world has one rank.
+    """
+    if dist.is_initialized():
+        return
+    env = os.environ
+    world = (num_processes if num_processes is not None
+             else int(env.get("WORLD_SIZE", "1")))
+    if world <= 1:
+        return
+    rank = process_id if process_id is not None else int(env["RANK"])
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    extra = {}
+    if torch.device(device).type == "cuda":
+        local = int(env.get("LOCAL_RANK", rank % torch.cuda.device_count()))
+        torch.cuda.set_device(local)
+        extra = dict(device_id=torch.device("cuda", local))
+    init = ("tcp://" + coordinator_address if coordinator_address
+            else "env://")
+    dist.init_process_group("nccl" if extra else "gloo", init_method=init,
+                            world_size=world, rank=rank,
+                            timeout=COLLECTIVE_TIMEOUT, **extra)
+
+
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """One line of the rank grid through this rank: the global ranks on
+    it in axis order, this rank's index among them, and their process
+    group (None: the default group where the line is the whole world, and
+    where it is this rank alone, which issues no collective)."""
+
+    ranks: tuple
+    index: int
+    group: object = None
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    @classmethod
+    def world(cls) -> "Axis":
+        """Every rank of this process's group, in rank order."""
+        rank, world = rank_and_size()
+        return cls(tuple(range(world)), rank)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The (tx, ev) grid of the world's ranks (JAX:
+    farms_tpu/parallel/multihost.py:58). Global rank r sits at
+    i_tx = r % tx, j_ev = r // tx, so one band group (the tx ranks of one
+    j_ev) is tx consecutive ranks: one host's cards under a launcher that
+    numbers each host's ranks together, and the halo exchanges stay on
+    that host. `band` is this rank's line along tx (the ranks that share
+    its lanes and split its rows), `event` its line along ev (the ranks
+    that hold its rows and split the lanes)."""
+
+    tx: int
+    ev: int
+    band: Axis
+    event: Axis
+
+    @property
+    def i_tx(self) -> int:
+        return self.band.index
+
+    @property
+    def j_ev(self) -> int:
+        return self.event.index
+
+
+def make_global_mesh(tx: int | None = None, ev: int | None = None) -> Mesh:
+    """This rank's place in a (tx, ev) grid of the world's ranks.
+
+    Defaults: tx = the ranks of one host (LOCAL_WORLD_SIZE from the
+    launcher, else the whole world), halved until it divides the world,
+    and ev = world / tx. Raises ValueError where tx * ev is not the
+    world. Every rank must call it, in the same order relative to its
+    other collectives: it creates the process group of every line of the
+    grid, on every rank, in one fixed order (torch.distributed requires
+    it).
+    """
+    rank, world = rank_and_size()
+    if tx is None:
+        tx = max(1, int(os.environ.get("LOCAL_WORLD_SIZE", world)))
+        while world % tx:
+            tx //= 2
+    if ev is None:
+        ev = world // tx
+    if tx < 1 or ev < 1 or tx * ev != world:
+        raise ValueError(f"mesh {tx}x{ev} != {world} ranks")
+    bands = [tuple(j * tx + i for i in range(tx)) for j in range(ev)]
+    events = [tuple(j * tx + i for j in range(ev)) for i in range(tx)]
+    groups = {}
+    for line in bands + events:
+        # the whole world and single ranks need no group of their own
+        if 1 < len(line) < world:
+            groups[line] = dist.new_group(list(line))
+    band, event = bands[rank // tx], events[rank % tx]
+    return Mesh(tx, ev, Axis(band, rank % tx, groups.get(band)),
+                Axis(event, rank // tx, groups.get(event)))
+
+
+def make_event_mesh(num_devices: int | None = None) -> Mesh:
+    """The (1, ev) grid of event-parallel ranks; num_devices, where
+    given, must be the world's size."""
+    world = rank_and_size()[1]
+    if num_devices is not None and num_devices != world:
+        raise ValueError(f"requested {num_devices} ranks, the world has "
+                         f"{world}")
+    return make_global_mesh(tx=1, ev=world)
 
 
 def run(fn, world_size: int, device: str, *args):

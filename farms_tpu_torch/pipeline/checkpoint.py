@@ -5,11 +5,13 @@ Reads and writes the version-3 `.npz` format of
 in the other: the surface arrays at the semantic sensor geometry, the
 micro-step counter and the stream's latched t0.
 
-Checkpoints are engine-portable: the halo engine (parallel/halo.py) saves
-its bands gathered to the whole sensor (`whole_state`; rank 0 writes) and
-restores by giving each rank its band of the whole state (`set_state`), so
-a single-engine checkpoint resumes on any number of ranks and the other
-way round.
+Checkpoints are engine-portable: every engine saves its state at the
+semantic [W, H] geometry through `whole_state` (padding stripped; the
+sharded engines gather their row bands, rank 0 writes) and restores
+through `set_state` (padded to the array geometry; each rank keeps its
+band where the rows are sharded). So a checkpoint of the single, dp,
+halo or multihost engine resumes in any of them, on any number of ranks
+or (tx, ev) grid.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ FORMAT_VERSION = 3
 def save_engine(engine: FlowEngine, path: str) -> str:
     """Write the engine's full state to an .npz file.
 
-    Every rank of a halo engine calls it; it returns once the file is
+    Every rank of a sharded engine calls it; it returns once the file is
     written."""
     if not path.endswith(".npz"):
         path = path + ".npz"

@@ -1,7 +1,7 @@
 """Chunked streaming flow engine, PyTorch main path.
 
-Counterpart of `farms_tpu.pipeline.engine` for one device and the dense
-formulation: the replacement of the reference's per-event hot loop
+Counterpart of `farms_tpu.pipeline.engine` for one device: the
+replacement of the reference's per-event hot loop
 (runFileCopy, vFlow.cpp:223-414). Events are processed in fixed-size
 micro-batches (`micro_step`); the host resolves each scatter group's
 winners and packs the events as delta-coded 4-byte words (compact2,
@@ -29,7 +29,8 @@ from farms_tpu_torch.ops.dense_flow import onehot_gather, trig_tail
 from farms_tpu_torch.ops.local_flow import local_flow_batch
 from farms_tpu_torch.state.surfaces import (SurfaceState, init_state,
                                             kill_stale_flow,
-                                            kill_stale_flow_in_phase)
+                                            kill_stale_flow_in_phase,
+                                            pad_state, strip_state)
 
 # compact2 escape slots per micro-step: stamp deltas too large for the
 # word's field ride as exact (lane, delta) pairs
@@ -169,7 +170,8 @@ def _decode_batch(batch: dict, cfg: FlowConfig):
 
 
 def _scatter(surf: torch.Tensor, idx: torch.Tensor, values) -> torch.Tensor:
-    """A copy of the [W, H] `surf` with flat cells `idx` set to `values`.
+    """A copy of the [W, H] `surf` with flat cells `idx` set to `values`
+    (W, H its own extent: the array geometry, or a shard's band).
 
     The scatter goes into a flat [W*H + 1] buffer whose spare cell absorbs
     the sentinel index W*H of non-winner and padded lanes; real indices
@@ -240,6 +242,12 @@ def _phasing(m: int, cfg: FlowConfig) -> tuple[int, int, tuple]:
     return P, S, links
 
 
+def lane_range(sl: slice, lanes: tuple[int, int]) -> slice | None:
+    """The lanes of `sl` that lie in the window [lo, hi), or None."""
+    start, stop = max(sl.start, lanes[0]), min(sl.stop, lanes[1])
+    return slice(start, stop) if start < stop else None
+
+
 def _coarse(cfg: FlowConfig, P: int) -> int:
     """Aperture groups of a P-phase micro-step under coarse pooling (A < P
     aperture phases dividing P), else 0."""
@@ -247,7 +255,8 @@ def _coarse(cfg: FlowConfig, P: int) -> int:
     return A if A and A < P and P % A == 0 else 0
 
 
-def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig):
+def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig,
+               lanes: tuple[int, int] | None = None):
     """Process one micro-batch of events against the carried surfaces.
 
     `batch` is the dict of one packed micro-step (see _decode_batch), with
@@ -255,8 +264,14 @@ def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig):
     that enables the derived `written` (no epoch scatter), and with the
     correction pass's "r2f" uint8 [m] corrected-lane flags and "r2c" int32
     [W, H] stamp1 center surface (FlowEngine.pack_r2). Returns the new
-    state and the wire pair (int32 [C, m], uint8 [m]); the state passed in
-    is not modified.
+    state and the wire pair (int32 [C, k], uint8 [k]); the state passed in
+    is not modified. Every lane scatters; `lanes` = (lo, hi) is the window
+    of lanes whose outputs are gathered, k = hi - lo (all m by default):
+    an event-parallel rank's shard (parallel/dp.py).
+
+    The surfaces are at the config's array geometry: a padded config's
+    pad cells are never written, and its lanes' flat indices (semantic
+    x * H + y in the batch) address the array's x * Ha + y.
 
     The chunk's lanes run as cfg.sub_phases = P chronological groups in
     turn: each group's winners are scattered and its flows computed against
@@ -284,9 +299,10 @@ def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig):
     x, y, t, is_winner = _decode_batch(batch, cfg)
     wesc = batch.get("wesc")
     r2f, r2c = batch.get("r2f"), batch.get("r2c")
-    W, H = cfg.width, cfg.height
+    W, H = cfg.array_width, cfg.array_height
     WH = W * H
     m = x.shape[0]
+    lanes = lanes or (0, m)
     P, S, links = _phasing(m, cfg)
     mp = m // P
     ms = mp // S
@@ -334,11 +350,14 @@ def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig):
                 snaps.append(t_surf)
             if corr and si in links:
                 chunk_chain.append(t_surf)
+        osl = lane_range(sl, lanes)       # this phase's gathered lanes
         if not cfg.use_dense:
-            lanes, flow_len, flow_vx, flow_vy = _perevent_phase(
+            plane, flow_len, flow_vx, flow_vy = _perevent_phase(
                 t_pre, t_surf, flow_len, flow_vx, flow_vy, xs, ys,
                 t1[sl], wpix[sl], cfg)
-            lanes_out.append(lanes)
+            if osl:
+                lanes_out.append(plane[:, osl.start - sl.start:
+                                       osl.stop - sl.start])
             continue
         if wesc is not None:
             # derived written: pixels whose stamp changed, plus the
@@ -374,8 +393,9 @@ def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig):
             loc = _lane_table(vx_map, vy_map, gate_map, cfg)
             if corr:
                 loc_maps.append(loc)
-            else:
-                pending.append((xs, ys, onehot_gather(loc, xs, ys, W, H)))
+            elif osl:
+                pending.append((x[osl], y[osl],
+                                onehot_gather(loc, x[osl], y[osl], W, H)))
             if (p + 1) % (P // coarse) == 0:
                 amaps = _lane_table(*kernels.aperture(
                     flow_len, flow_vx, flow_vy, cfg), cfg)
@@ -398,10 +418,13 @@ def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig):
                                              cfg))
                 loc_maps.append(_lane_table(vx_map, vy_map, gate_map, cfg))
                 continue
+            gsl = lane_range(slice(p * mp + g * mg, p * mp + (g + 1) * mg),
+                             lanes)
+            if gsl is None:
+                continue
             maps = wire_maps(gate_map, vx_map, vy_map, tvx_map, tvy_map,
                              scale_map, cfg)
-            gsl = slice(g * mg, (g + 1) * mg)
-            lanes_out.append(onehot_gather(maps, xs[gsl], ys[gsl], W, H))
+            lanes_out.append(onehot_gather(maps, x[gsl], y[gsl], W, H))
 
     if corr:
         # ---- rank-2 center correction: one local-flow pass per chunk in
@@ -414,18 +437,20 @@ def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig):
             torch.stack(chunk_chain), r2c, cfg, fold_center=False)
         vx2, vy2, gate2, _, _ = trig_tail(acc2, a2, b2, dtdp2)
         loc_maps.append(_lane_table(vx2, vy2, gate2, cfg))
-        lane = torch.arange(m, device=x.device)
-        table = torch.where(r2f != 0, len(loc_maps) - 1, lane // mp)
-        loc = _take(loc_maps, table * WH + pix)
-        tf = _take(ap_tables, lane // (m // len(ap_tables)) * WH + pix)
-        lanes = _merge_lanes(loc, tf, cfg)
+        lo, hi = lanes
+        lane = torch.arange(lo, hi, device=x.device)
+        table = torch.where(r2f[lo:hi] != 0, len(loc_maps) - 1, lane // mp)
+        loc = _take(loc_maps, table * WH + pix[lo:hi])
+        tf = _take(ap_tables,
+                   lane // (m // len(ap_tables)) * WH + pix[lo:hi])
+        rows = _merge_lanes(loc, tf, cfg)
     else:
-        lanes = torch.cat(lanes_out, 1)
+        rows = torch.cat(lanes_out, 1)
     if cfg.use_dense and cfg.wire != "f32":
         # the rows are already the f16 pair words (as f32 bits) + aux
-        out = (lanes[:2].view(torch.int32), lanes[2].to(torch.uint8))
+        out = (rows[:2].view(torch.int32), rows[2].to(torch.uint8))
     else:
-        out = wire_pack(lanes[0], lanes[1], lanes[2], lanes[3], lanes[4], cfg)
+        out = wire_pack(rows[0], rows[1], rows[2], rows[3], rows[4], cfg)
     new_state = SurfaceState(t_surf, epoch, flow_len, flow_vx, flow_vy,
                              state.step + 1)
     return new_state, out
@@ -456,18 +481,20 @@ def _perevent_phase(t_pre, t_surf, flow_len, flow_vx, flow_vy, xs, ys, t1s,
     return lanes, flow_len, flow_vx, flow_vy
 
 
-def scan_chunk(state: SurfaceState, chunk: dict, cfg: FlowConfig):
+def scan_chunk(state: SurfaceState, chunk: dict, cfg: FlowConfig,
+               lanes: tuple[int, int] | None = None):
     """Run the micro-steps of one call in order.
 
     `chunk` is a micro_step batch dict with a leading [n_steps] axis on
     every entry. Returns the final state and the stacked wire pair
-    (int32 [n_steps, C, m], uint8 [n_steps, m]).
+    (int32 [n_steps, C, k], uint8 [n_steps, k]) of the gathered `lanes`
+    (micro_step; all m by default).
     """
     mains, auxs = [], []
     n_steps = chunk["ev"].shape[0]
     for i in range(n_steps):
         state, (main, aux) = micro_step(
-            state, {k: v[i] for k, v in chunk.items()}, cfg)
+            state, {k: v[i] for k, v in chunk.items()}, cfg, lanes)
         mains.append(main)
         auxs.append(aux)
     return state, (torch.stack(mains), torch.stack(auxs))
@@ -492,22 +519,23 @@ class FlowEngine:
     def reset(self):
         self.state = init_state(self.cfg, self.device)
         self._t0 = None
-        # host mirror of t_surf (stamp1) for pack_wesc
+        # host mirror of t_surf (stamp1) for pack_wesc, at the semantic
+        # geometry of the packed flat indices
         self._last_stamp = np.zeros(self.cfg.width * self.cfg.height,
                                     np.int32)
 
     def set_state(self, state: SurfaceState) -> None:
-        """Adopt a whole-sensor [W, H] state (e.g. a restored checkpoint)
-        and re-seed the host stamp mirror that pack_wesc's equal-stamp
-        detection tracks."""
-        self.state = state
+        """Adopt a whole-sensor [W, H] state (e.g. a restored checkpoint),
+        padded to the array geometry, and re-seed the host stamp mirror
+        that pack_wesc's equal-stamp detection tracks."""
+        self.state = pad_state(state, self.cfg)
         self._last_stamp = (state.t_surf.cpu().numpy().reshape(-1)
                             .astype(np.int32).copy())
 
     def whole_state(self) -> SurfaceState | None:
         """The state at the semantic [W, H] geometry, as a checkpoint
         stores it (None on ranks that do not write checkpoints)."""
-        return self.state
+        return strip_state(self.state, self.cfg)
 
     # ---- host-side packing -------------------------------------------------
     def pack(self, ev: EventBatch, steps_per_call: int | None = None):
@@ -630,7 +658,8 @@ class FlowEngine:
         """Rank-2 lane data of the center-correction pass, built on the host.
 
         Returns (flags uint8 [n_calls, spc, m], centers int32 [n_calls,
-        spc, W, H]) with B = cfg.center_correction: per micro-step, the
+        spc, W, H], at the semantic geometry: array_centers pads them)
+        with B = cfg.center_correction: per micro-step, the
         second-latest event at each pixel within its plane-fit phase,
         deduplicated per (pixel, step) keeping the latest occurrence (one
         center surface per step holds one stamp per pixel) and capped at
@@ -750,7 +779,45 @@ class FlowEngine:
             **cols,
         )
 
+    def array_centers(self, centers: np.ndarray) -> np.ndarray:
+        """pack_r2's [..., W, H] center surfaces at the array geometry
+        (pad cells 0, never written)."""
+        cfg = self.cfg
+        pad = [(0, 0)] * (centers.ndim - 2) + [
+            (0, cfg.array_width - cfg.width),
+            (0, cfg.array_height - cfg.height)]
+        return np.pad(centers, pad)
+
     # ---- processing --------------------------------------------------------
+    def device_calls(self, ev: EventBatch, steps_per_call: int | None = None,
+                     derived_written: bool = True, center_rows=slice(None)):
+        """Pack a stream (len(ev) > 0) and yield each call's micro_step
+        batch dict on the device, in order; each call's escapes and
+        center surfaces travel with its own batch. `derived_written`
+        False skips pack_wesc (a step that always scatters the epoch);
+        `center_rows` are the rows of the center surfaces a rank
+        uploads."""
+        packed, aux2, _ = self.pack2(ev, steps_per_call=steps_per_call)
+        # the escapes of the derived `written` exist on the dense path only
+        wesc, w_ok = (self.pack_wesc(ev, steps_per_call=steps_per_call)
+                      if self.cfg.use_dense and derived_written
+                      else (None, None))
+        r2 = (self.pack_r2(ev, steps_per_call=steps_per_call)
+              if self.cfg.center_correction else None)
+        dev = self.device
+        for c in range(packed.shape[0]):
+            chunk = {"ev": torch.from_numpy(packed[c]).to(dev)}
+            if aux2 is not None:
+                chunk["base"] = torch.from_numpy(aux2[0][c]).to(dev)
+                chunk["esc"] = torch.from_numpy(aux2[1][c]).to(dev)
+            if wesc is not None and w_ok[c]:
+                chunk["wesc"] = torch.from_numpy(wesc[c]).to(dev)
+            if r2 is not None:
+                chunk["r2f"] = torch.from_numpy(r2[0][c]).to(dev)
+                chunk["r2c"] = torch.from_numpy(np.ascontiguousarray(
+                    self.array_centers(r2[1][c])[:, center_rows])).to(dev)
+            yield chunk
+
     def process(self, ev: EventBatch,
                 steps_per_call: int | None = None) -> FlowOutput:
         """Process an event stream (or a continuation of one).
@@ -762,24 +829,8 @@ class FlowEngine:
         n = len(ev)
         if n == 0:
             return _empty_output()
-        packed, aux2, n = self.pack2(ev, steps_per_call=steps_per_call)
-        # the escapes of the derived `written` exist on the dense path only
-        wesc, w_ok = (self.pack_wesc(ev, steps_per_call=steps_per_call)
-                      if self.cfg.use_dense else (None, None))
-        r2 = (self.pack_r2(ev, steps_per_call=steps_per_call)
-              if self.cfg.center_correction else None)
-        dev = self.device
         blocks = []
-        for c in range(packed.shape[0]):
-            chunk = {"ev": torch.from_numpy(packed[c]).to(dev)}
-            if aux2 is not None:
-                chunk["base"] = torch.from_numpy(aux2[0][c]).to(dev)
-                chunk["esc"] = torch.from_numpy(aux2[1][c]).to(dev)
-            if wesc is not None and w_ok[c]:
-                chunk["wesc"] = torch.from_numpy(wesc[c]).to(dev)
-            if r2 is not None:
-                chunk["r2f"] = torch.from_numpy(r2[0][c]).to(dev)
-                chunk["r2c"] = torch.from_numpy(r2[1][c]).to(dev)
+        for chunk in self.device_calls(ev, steps_per_call):
             self.state, (main, aux) = scan_chunk(self.state, chunk, self.cfg)
             blocks.append((main.cpu().numpy(), aux.cpu().numpy()))
         return self._unpack_outputs(blocks, ev, n)

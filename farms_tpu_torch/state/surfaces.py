@@ -3,7 +3,12 @@
 Counterpart of `farms_tpu.state.surfaces`: the reference's seven W x H
 EventMatrix surfaces (vFlow.cpp:47-93) collapsed to four maps + a step
 counter, all [W, H] and x-major (flat pixel index x*H + y, which the host
-packers and the wire share):
+packers and the wire share). A config with a padded array geometry
+(`FlowConfig.padded_to`, the sharded engines) holds them at
+[array_width, array_height] instead: the pad cells are never written, so
+they read as "never written" and as zero flow, which is what the stencils
+read past the sensor edge. Checkpoints keep the semantic [W, H]
+(`pad_state`, `strip_state`):
 
 - `t_surf` stores **stamp + 1** ("stamp1" encoding): 0 means "never
   written" (the Event(0,0,0,0) initializer, vFlow.cpp:80-93), 1 means
@@ -42,7 +47,7 @@ class SurfaceState:
 
 
 def init_state(cfg: FlowConfig, device) -> SurfaceState:
-    W, H = cfg.width, cfg.height
+    W, H = cfg.array_width, cfg.array_height
     return SurfaceState(
         t_surf=torch.zeros((W, H), dtype=torch.int32, device=device),
         epoch=torch.full((W, H), -1, dtype=torch.int32, device=device),
@@ -67,6 +72,35 @@ def state_from_numpy(t_surf, epoch, flow_len, flow_vx, flow_vy, step,
         flow_vy=put(flow_vy, np.float32),
         step=int(np.asarray(step)),
     )
+
+
+def pad_state(state: SurfaceState, cfg: FlowConfig) -> SurfaceState:
+    """A [W, H] state at the semantic geometry padded to the array
+    geometry: pad cells never written (stamp1 0, epoch -1, zero flow)."""
+    pad = (0, cfg.array_height - cfg.height, 0, cfg.array_width - cfg.width)
+    if not any(pad):
+        return state
+
+    def put(a, fill):
+        return torch.nn.functional.pad(a, pad, value=fill)
+
+    return SurfaceState(put(state.t_surf, 0), put(state.epoch, -1),
+                        put(state.flow_len, 0.0), put(state.flow_vx, 0.0),
+                        put(state.flow_vy, 0.0), state.step)
+
+
+def strip_state(state: SurfaceState, cfg: FlowConfig) -> SurfaceState:
+    """The semantic [W, H] cells of an array-geometry state."""
+    W, H = cfg.width, cfg.height
+    if tuple(state.t_surf.shape) == (W, H):
+        return state
+
+    def cut(a):
+        return a[:W, :H].contiguous()
+
+    return SurfaceState(cut(state.t_surf), cut(state.epoch),
+                        cut(state.flow_len), cut(state.flow_vx),
+                        cut(state.flow_vy), state.step)
 
 
 def kill_stale_flow(flow_len: torch.Tensor, t_surf: torch.Tensor, t_now,

@@ -103,15 +103,84 @@ def test_fidelity_modes_run(tmp_path, capsys, flags):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--engine", "dp"], ["--devices", "2"], ["--multihost"],
-    ["--wire", "sparse"], ["--engine", "spatial"], ["--engine", "multihost"],
+    ["--wire", "sparse"], ["--engine", "spatial"],
     ["--SERIAL", "1", "--engine", "halo", "--devices", "2"],
+    ["--SERIAL", "1", "--engine", "dp", "--devices", "2"],
+    ["--SERIAL", "1", "--devices", "2"],
+    ["--SERIAL", "1", "--engine", "multihost", "--devices", "4"],
 ])
 def test_unported_modes_raise(tmp_path, flags):
+    """Still refused: the sparse wire (ROADMAP Queue 1 item 8), spatial
+    tiling (not ported) and --SERIAL 1 on more than one rank, for every
+    engine."""
     _, base = _events_file(tmp_path, "x", n=10)
     with pytest.raises(NotImplementedError):
         tcli.main(["--filename", base, "--width", "64", "--height", "64",
                    "--device", "cpu", "--chunk-size", "64", *flags])
+
+
+def test_serial_on_a_launched_world_raises(tmp_path, monkeypatch):
+    """--SERIAL 1 --multihost in a launcher's world of 2 is refused before
+    the world is joined."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    _, base = _events_file(tmp_path, "x", n=10)
+    with pytest.raises(NotImplementedError):
+        tcli.main(["--filename", base, "--width", "64", "--height", "64",
+                   "--device", "cpu", "--SERIAL", "1", "--multihost"])
+
+
+@pytest.fixture(scope="module")
+def single_file(tmp_path_factory):
+    """(events base path, the single engine's output file's text) of the
+    sharded-engine CLI cases' stream."""
+    tmp = tmp_path_factory.mktemp("engines")
+    _, base = _events_file(tmp, "engines", n=700)
+    assert tcli.main(["--filename", base, *_POINT, "--device", "cpu",
+                      "--steps-per-scan", "1"]) == 0
+    with open(base + "_FARMSOut_batch.txt") as f:
+        return base, f.read()
+
+
+@pytest.mark.parametrize("flags", [
+    # refused before the dp and multihost engines were ported
+    ["--engine", "dp"], ["--devices", "2"], ["--multihost"],
+    ["--engine", "multihost"],
+    ["--engine", "dp", "--devices", "2"],
+    ["--engine", "single", "--devices", "2"],
+    ["--engine", "multihost", "--devices", "2"],
+    ["--engine", "multihost", "--devices", "1"],
+])
+def test_sharded_engines_write_the_single_engines_file(single_file, capfd,
+                                                       flags):
+    """dp (also --engine single with --devices > 1), multihost and
+    --multihost without a launcher (a world of one) write the single
+    engine's file byte for byte on gloo ranks; --devices 0 on the CPU is
+    one rank; rank 0 alone prints."""
+    base, want = single_file
+    capfd.readouterr()
+    assert tcli.main(["--filename", base, *_POINT, "--device", "cpu",
+                      "--steps-per-scan", "1", *flags]) == 0
+    assert capfd.readouterr().out.count("[Benchmark Main]") == 1
+    with open(base + "_FARMSOut_batch.txt") as f:
+        assert f.read() == want
+
+
+def test_devices_zero_counts_the_cards(monkeypatch):
+    """--devices 0 is every visible card on cuda (for dp, halo and
+    multihost) and one rank on the CPU; the single engine stays one
+    rank."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    p = tcli.build_parser()
+
+    def ranks(*flags):
+        return tcli._spawned_ranks(p.parse_args(["--filename", "f", *flags]))
+
+    for engine in ("dp", "halo", "multihost"):
+        assert ranks("--engine", engine) == 4
+        assert ranks("--engine", engine, "--device", "cpu") == 1
+        assert ranks("--engine", engine, "--devices", "2") == 2
+    assert ranks() == 1 and ranks("--devices", "2") == 2
+    assert ranks("--engine", "dp", "--multihost") == 1
 
 
 def test_halo_engine_ranks_write_the_same_file(tmp_path, capfd):

@@ -77,7 +77,6 @@ def test_validation_errors_match(jax_config, kw):
 
 @pytest.mark.parametrize("kw, item", [
     (dict(wire="sparse"), "item 8"),
-    (dict(width=100, padded_width=128), "item 11"),
     (dict(width=32768, height=32768), "Queue 1 item 5"),
 ])
 def test_unported_features_raise(kw, item):
@@ -106,6 +105,16 @@ def test_fidelity_features_accepted(kw):
     tconfig.require_slice(cfg)
     from farms_tpu_torch.pipeline.engine import FlowEngine
     FlowEngine(cfg, device="cpu")
+
+
+def test_padded_geometry_accepted():
+    """Padded array geometry runs on the single engine (refused before
+    the multi-host slice): its state sits at the array geometry."""
+    cfg = tconfig.FlowConfig(width=100, padded_width=128)
+    tconfig.require_slice(cfg)
+    from farms_tpu_torch.pipeline.engine import FlowEngine
+    eng = FlowEngine(cfg, device="cpu")
+    assert tuple(eng.state.t_surf.shape) == (128, 320)
 
 
 def test_slice_config_accepted():

@@ -460,6 +460,73 @@ def test_cuda_halo_engine_with_a_129_surface_chain_equals_single_engine(
 
 
 @pytest.mark.cuda
+def test_cuda_kernels_on_padded_arrays_match_plain(cuda):
+    """The kernels on a padded array geometry (pad cells never written):
+    equal to their plain versions, and on the sensor's cells to the
+    unpadded kernels' outputs, bitwise."""
+    import dataclasses
+
+    cfg = TConfig(width=60, height=44, max_window=10)
+    padded = dataclasses.replace(cfg, padded_width=64, padded_height=48)
+    pre, post = _random_surfaces(60, 44, seed=3)
+    fields = _flow_fields(60, 44, seed=4)
+
+    def put(a, shape):
+        out = np.zeros(shape, a.dtype)
+        out[:a.shape[0], :a.shape[1]] = a
+        return torch.from_numpy(out).to(cuda)
+
+    chain, center = put(pre, (64, 48))[None], put(post, (64, 48))
+    got = tk.local_flow(chain, center, padded)
+    want = tdf.local_flow_core(chain, center, padded)
+    plain = tk.local_flow(put(pre, (60, 44))[None], put(post, (60, 44)), cfg)
+    for name, g, w, p in zip(["accept", "a", "b", "dtdp", "cand"], got,
+                             want, plain):
+        assert torch.equal(g, w), name
+        assert torch.equal(g[:60, :44], p), name
+    fl = [put(a, (64, 48)) for a in fields]
+    got = tk.aperture(*fl, padded)
+    want = tdf.dense_aperture(*fl, padded)
+    plain = tk.aperture(*(put(a, (60, 44)) for a in fields), cfg)
+    for name, g, w, p in zip(["tvx", "tvy", "scale"], got, want, plain):
+        assert torch.equal(g, w), name
+        assert torch.equal(g[:60, :44], p), name
+
+
+@pytest.mark.cuda
+def test_cuda_one_rank_dp_multihost_and_padded_engines_equal_single(cuda):
+    """On one card, dp and multihost (no process group) and the single
+    engine on padded arrays give the single engine's outputs bitwise."""
+    import dataclasses
+
+    from farms_tpu_torch.events.io import synthetic_translating_bar
+    from farms_tpu_torch.parallel import (MultiHostFlowEngine,
+                                          ShardedFlowEngine)
+    from farms_tpu_torch.pipeline.engine import FlowEngine
+
+    cfg = TConfig(width=64, height=48, chunk_size=128, steps_per_scan=2,
+                  max_window=10, window_jump=5, sub_phases=4,
+                  aperture_sub_phases=2, causal_snapshots=2,
+                  center_correction=32, wire="f16")
+    ev = synthetic_translating_bar(width=64, height=48, bar_len=16,
+                                   duration_us=15000, jitter_us=10, seed=4)
+    ev.y[:] = np.clip(ev.y, 0, 47)
+    ref = FlowEngine(cfg, device=cuda).process(ev)
+    assert (ref.r_local > 0).sum() > 40
+    padded = dataclasses.replace(cfg, padded_width=68, padded_height=52)
+    for make in (lambda: ShardedFlowEngine(cfg, device=cuda),
+                 lambda: MultiHostFlowEngine(cfg, device=cuda),
+                 lambda: FlowEngine(padded, device=cuda)):
+        tk.reset_launches()
+        got = make().process(ev)
+        assert tk.LAUNCHES["local_flow"] > 0 and tk.LAUNCHES["aperture"] > 0
+        for col in ("vx", "vy", "r_local", "theta_local", "r_true",
+                    "theta_true", "scale"):
+            np.testing.assert_array_equal(getattr(got, col),
+                                          getattr(ref, col), err_msg=col)
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_rejects_bad_input(cuda):
     cfg = TConfig(width=32, height=32)
     center = torch.zeros((32, 32), dtype=torch.int32, device=cuda)

@@ -22,6 +22,7 @@ from farms_tpu_torch.config import FlowConfig as TConfig
 from farms_tpu_torch.events.io import EventBatch
 from farms_tpu_torch.ops import dense_flow as tdf
 from farms_tpu_torch.ops import kernels as tk
+from farms_tpu_torch.parallel import mesh
 from farms_tpu_torch.parallel.halo import HaloFlowEngine as THalo
 
 torch.set_num_threads(1)
@@ -164,7 +165,7 @@ def test_one_rank_integral_band_is_the_whole_integral(max_window):
 
     A = max_window + 1
     fields = [torch.from_numpy(a) for a in _flow_fields(64, 48, seed=3)]
-    got = assemble_integral_band(*fields, 1, A, 0)
+    got = assemble_integral_band(*fields, mesh.Axis((0,), 0), A)
     want = _integral_band(tdf.build_integral(*fields).numpy(), 1, 0, A)
     assert got.is_contiguous() and got.dtype == torch.float64
     np.testing.assert_array_equal(got.numpy().view(np.uint64),

@@ -89,12 +89,13 @@ def test_one_rank_band_carries_the_sequential_integral():
     integral (its zero row 0 and rows 1..W), then A copies of its total
     row, bit for bit."""
     from farms_tpu_torch.parallel.halo import assemble_integral_band
+    from farms_tpu_torch.parallel.mesh import Axis
 
     A = 11
     fields = _fields(40, 32, 7, True)
     ref = _reference(*fields)
-    got = assemble_integral_band(*(torch.from_numpy(a) for a in fields), 1,
-                                 A, 0).numpy()
+    got = assemble_integral_band(*(torch.from_numpy(a) for a in fields),
+                                 Axis((0,), 0), A).numpy()
     want = np.concatenate([np.zeros_like(ref[:, :A]), ref,
                            np.repeat(ref[:, -1:], A, axis=1)], 1)
     assert got.shape == want.shape
