@@ -7,9 +7,10 @@ Run from the repository root with no arguments:
 
 Phases, each printed with its result and seconds:
 
-1. the card (nvidia-smi name and power limit) and the kernel build
-   (one nvcc per source in farms_tpu_torch/csrc, all started together,
-   into farms_tpu_torch/_build);
+1. the card (nvidia-smi name and power limit), the kernel build (one
+   nvcc per source in farms_tpu_torch/csrc, all started together, into
+   farms_tpu_torch/_build) and the native I/O library's (one g++ of
+   native/fast_io.cpp into the same directory);
 2. each CUDA kernel against its plain PyTorch version on the card, bitwise,
    at the main paths' shapes (320 x 320), with the median times of one
    wrapper call and of one plain call from CUDA events, and the median
@@ -74,7 +75,8 @@ Phases, each printed with its result and seconds:
    environment, two "hosts" of two cards) whose CLI file and
    write_flow_distributed file (the output all-gather made to raise) are
    held as halo's; then [rates] of the single engine and of dp and
-   multihost at 2 and 4 ranks. With
+   multihost at 2 and 4 ranks, and the benchmark harness's config 5
+   (the halo engine's process_resident over every card). With
    one card it prints why it did not run (`--nccl-only` runs this phase
    alone, after the build);
 9. `--backend perevent --preset benchmark` through the CLI on the same
@@ -90,7 +92,24 @@ Phases, each printed with its result and seconds:
    events and chunk 1 on its first 1,024; and the single, dp and
    multihost engines at one rank at both presets: events/s and
    device-busy ms per 1M events (torch.profiler), each line with the
-   card's nvidia-smi name and power limit. No bound.
+   card's nvidia-smi name and power limit. No bound;
+12. native I/O: the CLI paths of 5 parsed, packed and wrote through the
+   native library; on the stream, parse, pack2 (benchmark preset) and
+   write native and NumPy, equal bit for bit or byte for byte, with their
+   host seconds;
+13. events/stream.process_file_streaming at the benchmark preset: the
+   stream in chunks of 262,144 events written byte for byte as the CLI's
+   one-shot file of 5, and its first 262,144 events in chunks of 100,000
+   with the CPU's valid flags and scale ids; launch counts;
+14. `--wire sparse` through the CLI, its file byte for byte the `--wire
+   f16` file of 5, with the device-to-host bytes per event of both wires
+   and the events/s of a warmed process() on each;
+15. FlowEngine.process_resident (the explicit 5-row layout) at both
+   presets: launch counts, every column bit for bit equal to process(),
+   a replay from its start state equal to the first run;
+16. the benchmark harness (farms_tpu_torch/bench/harness.py) configs 1-4,
+   each JSON line with the card's name and power limit and the kernels
+   it launched.
 
 The line before the last is the card's nvidia-smi name and power limit;
 the one before it a JSON summary of the kernels, with each kernel's bound
@@ -357,6 +376,18 @@ def _compare(name, got, want, names):
     return max_err
 
 
+def _library_integral(flow_len, flow_vx, flow_vy):
+    """The float64 integral by library calls: the gated fields, then
+    torch.cumsum over both axes (CUDA's own scan order), zero-padded to
+    [4, W + 1, H + 1]."""
+    import torch
+    gate = (flow_len > 0).to(torch.float32)
+    stack = torch.stack([gate, flow_len * gate, flow_vx * gate,
+                         flow_vy * gate]).to(torch.float64)
+    return torch.nn.functional.pad(
+        torch.cumsum(torch.cumsum(stack, 1), 2), (1, 0, 1, 0))
+
+
 def check_kernels(dev):
     """Phase 2: each kernel vs its plain version at the main paths' shapes.
 
@@ -477,9 +508,11 @@ def check_kernels(dev):
         ms = _median_ms(lambda: kernels.integral(*ins))
         device_ms = _device_ms(lambda: kernels.integral(*ins))
         plain_ms = _median_ms(lambda: plain.build_integral(*ins))
+        library_ms = _median_ms(lambda: _library_integral(*ins))
         if (W, H) == (SENSOR, SENSOR):
             results["integral"] = dict(ms=ms, device_ms=device_ms,
                                        plain_ms=plain_ms,
+                                       library_ms=library_ms,
                                        **integral_bound(W, H))
         _phase(f"kernel integral {W}x{H}", t0,
                f"equal bit for bit to plain on the card and on the cpu; "
@@ -487,7 +520,9 @@ def check_kernels(dev):
                f"torch.cumsum over the innermost dimension on the card "
                f"departs from the sequential order in {departs} of "
                f"{inner.numel()} cells; kernel {ms:.4f} ms "
-               f"(device {_fmt_ms(device_ms)}), plain {plain_ms:.4f} ms")
+               f"(device {_fmt_ms(device_ms)}), plain {plain_ms:.4f} ms, "
+               f"library (torch.cumsum over both axes, float64) "
+               f"{library_ms:.4f} ms")
 
         t0 = time.perf_counter()
         got = kernels.aperture(*ins, cfg)
@@ -887,13 +922,11 @@ def check_padded(base):
     same valid flags and scale ids as on the CPU on every event, and every
     column bitwise equal to the unpadded engine's card run. Returns
     (launches, events/s of the card run)."""
-    from farms_tpu_torch import cli
     from farms_tpu_torch.events.io import load_events_txt
     from farms_tpu_torch.pipeline.engine import FlowEngine
 
     t0 = time.perf_counter()
-    args = cli.build_parser().parse_args(_stream_argv(base, "benchmark"))
-    cfg = cli.build_config(args)
+    cfg = _preset_config(base)
     padded = dataclasses.replace(cfg, padded_width=SENSOR + 4,
                                  padded_height=SENSOR + 8)
     ev = load_events_txt(base, K7_EVENTS)
@@ -908,12 +941,8 @@ def check_padded(base):
     (card, wall), launches = _counted("padded", run, want)
     if tuple(eng.state.t_surf.shape) != (SENSOR + 4, SENSOR + 8):
         raise AssertionError(f"padded state {tuple(eng.state.t_surf.shape)}")
-    plain = FlowEngine(cfg, device="cuda").process(ev)
-    for col in FLOW_COLUMNS:
-        a, b = np.asarray(getattr(card, col)), np.asarray(getattr(plain, col))
-        if a.tobytes() != b.tobytes():
-            raise AssertionError(f"padded {col}: differs from the unpadded "
-                                 "engine on the card")
+    _same_columns("padded (against the unpadded engine on the card)", card,
+                  FlowEngine(cfg, device="cuda").process(ev))
     cpu = FlowEngine(padded, device="cpu").process(ev)
     vc, vg = cpu.r_local > 0, card.r_local > 0
     if (vc != vg).any() or (cpu.scale != card.scale).any() or vg.sum() < 1000:
@@ -926,6 +955,299 @@ def check_padded(base):
            f"flags ({int(vg.sum())} valid) and scale ids equal to the cpu on "
            f"every event; {len(ev) / wall:.1f} events/sec")
     return launches, len(ev) / wall
+
+
+@contextlib.contextmanager
+def _without_native(name):
+    """nativeio.<name> answering as if the library were absent, so its
+    caller takes the NumPy path."""
+    from farms_tpu_torch.utils import nativeio
+    real = getattr(nativeio, name)
+    setattr(nativeio, name, lambda *a, **kw: None)
+    try:
+        yield
+    finally:
+        setattr(nativeio, name, real)
+
+
+def _preset_config(base, preset="benchmark"):
+    """The FlowConfig of the CLI at `preset` on the stream at `base`."""
+    from farms_tpu_torch import cli
+    return cli.build_config(cli.build_parser().parse_args(
+        _stream_argv(base, preset)))
+
+
+def _same_columns(label, got, want):
+    """Every FlowOutput column bit for bit."""
+    for col in FLOW_COLUMNS:
+        a, b = np.asarray(getattr(got, col)), np.asarray(getattr(want, col))
+        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            raise AssertionError(f"{label} {col}: differs")
+
+
+def _timed(fn):
+    start = time.perf_counter()
+    result = fn()
+    return result, time.perf_counter() - start
+
+
+def check_native(base, work, card_files, cli_calls):
+    """Phase 12: the native fast I/O (farms_tpu_torch/utils/nativeio.py,
+    built from native/fast_io.cpp in phase 1) on the 1,048,576-event
+    stream: the CLI's main paths of phase 5 went native (`cli_calls`);
+    parse, pack2 (the compact pack inside it) and write each native and
+    NumPy, equal bit for bit / byte for byte, with their host seconds;
+    the native file equals the CLI's benchmark card file."""
+    import torch
+    from farms_tpu_torch.events.io import load_events_txt, write_flow_txt
+    from farms_tpu_torch.pipeline.engine import FlowEngine
+    from farms_tpu_torch.utils import nativeio
+
+    t0 = time.perf_counter()
+    if not nativeio.available() or min(cli_calls.values()) < 1:
+        raise AssertionError(f"native I/O: library {nativeio.build_error()}"
+                             f", the CLI's native calls {cli_calls}")
+    nativeio.reset_calls()
+    ev, parse_s = _timed(lambda: load_events_txt(base))
+    with _without_native("parse_events"):
+        ev_np, parse_np_s = _timed(lambda: load_events_txt(base))
+    for col in ("x", "y", "t", "pol"):
+        a, b = getattr(ev, col), getattr(ev_np, col)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"native parse {col} differs from NumPy")
+    cfg = _preset_config(base)
+    (packed, aux2, _), pack_s = _timed(
+        lambda: FlowEngine(cfg, device="cuda").pack2(ev))
+    with _without_native("pack_compact"):
+        (packed_np, aux2_np, _), pack_np_s = _timed(
+            lambda: FlowEngine(cfg, device="cuda").pack2(ev))
+    for a, b in zip((packed, *aux2), (packed_np, *aux2_np)):
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError("native pack2 differs from NumPy")
+    out = FlowEngine(cfg, device="cuda").process(ev)
+    torch.cuda.synchronize()
+    path, write_s = _timed(lambda: write_flow_txt(
+        out, os.path.join(work, "native")))
+    with _without_native("write_flow"):
+        path_np, write_np_s = _timed(lambda: write_flow_txt(
+            out, os.path.join(work, "numpy")))
+    if not filecmp.cmp(path, path_np, shallow=False):
+        raise AssertionError("native write differs from NumPy")
+    if not filecmp.cmp(path, card_files["benchmark"], shallow=False):
+        raise AssertionError("native write differs from the CLI's file")
+    calls = dict(nativeio.CALLS)
+    if calls != {"parse": 1, "pack": 2, "write": 1}:
+        raise AssertionError(f"native calls {calls}")
+    _phase("native io", t0,
+           f"the CLI paths' native calls {cli_calls}; on {len(ev)} events, "
+           f"native / NumPy host seconds: parse {parse_s:.4f} / "
+           f"{parse_np_s:.4f}, pack2 (benchmark preset) {pack_s:.4f} / "
+           f"{pack_np_s:.4f}, write {write_s:.4f} / {write_np_s:.4f}; "
+           f"each equal bit for bit (arrays) or byte for byte (files), the "
+           f"file equal to the CLI's benchmark card file; native calls "
+           f"{calls}")
+    return dict(parse=(parse_s, parse_np_s), pack2=(pack_s, pack_np_s),
+                write=(write_s, write_np_s))
+
+
+def check_stream(base, work, card_files):
+    """Phase 13: events/stream.process_file_streaming at the benchmark
+    preset on the card: the stream in chunks of 262,144 events (whole
+    calls) written byte for byte as the CLI's one-shot card file; its
+    first 262,144 events in chunks of 100,000 (no chunk a whole
+    micro-step) with the CPU's valid flags and scale ids on every event.
+    Returns {label: (launches, events/s)}."""
+    from farms_tpu_torch.events.io import read_flow_txt, write_flow_txt
+    from farms_tpu_torch.events.stream import process_file_streaming
+    from farms_tpu_torch.pipeline.engine import FlowEngine
+
+    cfg = _preset_config(base)
+    t0 = time.perf_counter()
+    want = _preset_launches(STREAM_EVENTS // 131072)["benchmark"]
+    eng = FlowEngine(cfg, device="cuda")
+    (out, wall), launches = _counted(
+        "stream aligned", lambda: _timed(lambda: process_file_streaming(
+            eng, base, chunk_events=2 * 131072)), want)
+    path = write_flow_txt(out, os.path.join(work, "stream"))
+    if not filecmp.cmp(path, card_files["benchmark"], shallow=False):
+        got, ref = read_flow_txt(path), read_flow_txt(card_files["benchmark"])
+        raise AssertionError(
+            "stream aligned: file differs from the one-shot run: "
+            + str({c: int((getattr(got, c) != getattr(ref, c)).sum())
+                   for c in FLOW_COLUMNS} if len(got) == len(ref)
+                  else len(got)))
+    results = {"stream aligned": (launches, len(out) / wall)}
+    _phase("stream aligned", t0,
+           f"{len(out)} events in chunks of 262144: launches {launches}; "
+           f"output file equal byte for byte to the CLI's one-shot card "
+           f"file; {len(out) / wall:.1f} events/s (parse included)")
+
+    t0 = time.perf_counter()
+    n_cut = K7_EVENTS
+    want = _preset_launches(3)["benchmark"]   # 3 chunks, a step each
+    (card, wall), launches = _counted(
+        "stream unaligned", lambda: _timed(lambda: process_file_streaming(
+            FlowEngine(cfg, device="cuda"), base, chunk_events=100000,
+            max_events=n_cut)), want)
+    cpu = process_file_streaming(FlowEngine(cfg, device="cpu"), base,
+                                 chunk_events=100000, max_events=n_cut)
+    vc, vg = cpu.r_local > 0, card.r_local > 0
+    if (len(card) != n_cut or (vc != vg).any()
+            or (cpu.scale != card.scale).any() or vg.sum() < 1000):
+        raise AssertionError(f"stream unaligned card vs cpu: "
+                             f"{int((vc != vg).sum())} valid flags, "
+                             f"{int((cpu.scale != card.scale).sum())} scale "
+                             "ids differ")
+    results["stream unaligned"] = (launches, n_cut / wall)
+    _phase("stream unaligned", t0,
+           f"{n_cut} events in chunks of 100000: launches {launches}; "
+           f"valid flags ({int(vg.sum())} valid) and scale ids equal to the "
+           f"cpu's on every event")
+    return results
+
+
+def check_sparse(base, card_files, smi):
+    """Phase 14: `--wire sparse` through the CLI at the benchmark preset,
+    its file byte for byte the `--wire f16` card file of phase 5, with the
+    device-to-host bytes per event of both wires; then events/s of a
+    warmed process() on each wire, in turns (f16, sparse, sparse, f16).
+    Returns (launches, events/s of the sparse CLI run)."""
+    import dataclasses as dc
+
+    import torch
+    from farms_tpu_torch.events.io import load_events_txt
+    from farms_tpu_torch.pipeline import engine as teng
+
+    t0 = time.perf_counter()
+    fetched = []
+    fetch = teng._fetch_sparse
+
+    def counting(out):
+        aux_plus, pay = out
+        got = fetch(out)
+        R = (aux_plus.shape[0] - pay.shape[0] // 2 - 8) // 4
+        k = got[1].size + got[2].size
+        fetched.append(aux_plus.shape[0] + (4 * k if k > R else 0))
+        return got
+
+    argv = _stream_argv(base, "benchmark") + ["--wire", "sparse"]
+    teng._fetch_sparse = counting
+    try:
+        (_, cli_rate), launches = _counted(
+            "sparse", lambda: _run_cli(argv),
+            _preset_launches(STREAM_EVENTS // 131072)["benchmark"])
+    finally:
+        teng._fetch_sparse = fetch
+    if not filecmp.cmp(base + "_FARMSOut_batch.txt", card_files["benchmark"],
+                       shallow=False):
+        raise AssertionError("--wire sparse: file differs from --wire f16")
+    sparse_b = sum(fetched) / STREAM_EVENTS
+    f16_b = 9.0       # (2 int32 words + 1 aux byte) per lane, no padding
+    ev = load_events_txt(base)
+    cfg = _preset_config(base)
+    rates = {"f16": [], "sparse": []}
+    decode = {"f16": [], "sparse": []}
+    for wire in ("f16", "sparse", "sparse", "f16"):
+        eng = teng.FlowEngine(dc.replace(cfg, wire=wire), device="cuda")
+        eng.process(ev[:2 * 131072])                 # warm-up
+        eng.reset()
+        unpack = eng._unpack_outputs
+
+        def timed_unpack(*a):
+            out, secs = _timed(lambda: unpack(*a))
+            decode[wire].append(secs)
+            return out
+
+        eng._unpack_outputs = timed_unpack
+        torch.cuda.synchronize()
+        _, wall = _timed(lambda: eng.process(ev))
+        rates[wire].append(len(ev) / wall)
+    line = (f"[rates] wire f16 / sparse, benchmark, warmed process(): "
+            f"{np.mean(rates['f16']):.1f} / {np.mean(rates['sparse']):.1f} "
+            f"events/s (runs {rates}), of which host decode "
+            f"{np.mean(decode['f16']):.4f} / {np.mean(decode['sparse']):.4f} "
+            f"s; device-to-host {f16_b:.3f} / {sparse_b:.3f} bytes per "
+            f"event; card {smi}")
+    print(line, flush=True)
+    _phase("cli sparse cuda", t0,
+           f"launches {launches}; output file equal byte for byte to the "
+           f"--wire f16 card file; {len(fetched)} calls fetched "
+           f"{sum(fetched)} bytes ({sparse_b:.3f} B/event against "
+           f"{f16_b:.0f}); [Benchmark Main] rate {cli_rate:.1f} events/sec")
+    return launches, float(np.mean(rates["sparse"]))
+
+
+def check_resident(base):
+    """Phase 15: FlowEngine.process_resident at both presets on the card:
+    the stream as one uploaded call of the explicit 5-row layout (the
+    5-row decode on the card), its launch counts, its outputs decoded
+    equal to process() on every column bit for bit, and a replay from the
+    state before the first call equal to the first. Returns {label:
+    (launches, events/s of a timed replay)}."""
+    import torch
+    from farms_tpu_torch.events.io import load_events_txt
+    from farms_tpu_torch.pipeline.engine import FlowEngine
+
+    ev = load_events_txt(base)
+    results = {}
+    for preset, want in _preset_launches(STREAM_EVENTS // 131072).items():
+        t0 = time.perf_counter()
+        cfg = _preset_config(base, preset)
+        ref = FlowEngine(cfg, device="cuda").process(ev)
+        eng = FlowEngine(cfg, device="cuda")
+        fn, n = eng.process_resident(ev)
+        start = eng.state
+        (main, aux), launches = _counted(f"resident {preset}", fn, want)
+        got = eng._unpack_outputs([(main.cpu().numpy(), aux.cpu().numpy())],
+                                  ev, n)
+        _same_columns(f"resident {preset}", got, ref)
+        eng.state = start
+        torch.cuda.synchronize()
+        (main2, aux2), wall = _timed(lambda: (fn(), torch.cuda.synchronize())
+                                     [0])
+        if not (torch.equal(main, main2) and torch.equal(aux, aux2)):
+            raise AssertionError(f"resident {preset}: replay differs")
+        results[f"resident {preset}"] = (launches, n / wall)
+        _phase(f"resident {preset}", t0,
+               f"{n} events as one call of {main.shape[0]} micro-steps "
+               f"(5-row batch): launches {launches}; every column equal bit "
+               f"for bit to process(); the replay from its start state "
+               f"equal, {n / wall:.1f} events/s")
+    return results
+
+
+def check_harness(smi, config_ids=("1", "2", "3", "4")):
+    """Phase 16: the benchmark harness (farms_tpu_torch/bench/harness.py)
+    configs 1-4 on this card: each JSON line with the card's nvidia-smi
+    name and power limit, and the kernels each one launched (each expected
+    kernel at least once). Returns {label: (launches, events/s)}."""
+    import torch
+    from farms_tpu_torch.bench import harness
+    from farms_tpu_torch.ops import kernels
+
+    # config 2 sweeps filter sizes 3, 5 and 7: the general kernel too
+    expect = {"1": ("local_flow",), "2": ("local_flow", "local_flow_general"),
+              "3": ("local_flow",), "4": ("local_flow",)}
+    results = {}
+    for cid in config_ids:
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        res = harness.ALL_CONFIGS[cid]()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        needed = expect.get(cid, ("local_flow",)) + ("aperture", "integral")
+        if min(launches[k] for k in needed) < 1:
+            raise AssertionError(f"harness config {cid}: launches "
+                                 f"{launches}")
+        res = res if isinstance(res, list) else [res]
+        for line in harness.result_lines(res):
+            print(f"[harness] {line} card {smi}", flush=True)
+        if min(r.events_per_sec for r in res) <= 0:
+            raise AssertionError(f"harness config {cid}: {res}")
+        results[f"harness config {cid}"] = (launches, res[0].events_per_sec)
+        _phase(f"harness config {cid}", t0, f"launches {launches}")
+    return results
 
 
 def _cli_process(argv):
@@ -1091,12 +1413,10 @@ def _make_engine(kind, cfg):
 def rank_rate(kind, base, preset):
     """A rank's `_engine_rate` of engine `kind` on the stream (parallel/
     mesh.py `run` entry point; rank 0's is returned)."""
-    from farms_tpu_torch import cli
     from farms_tpu_torch.events.io import load_events_txt
 
-    cfg = cli.build_config(cli.build_parser().parse_args(
-        _stream_argv(base, preset)))
-    return _engine_rate(_make_engine(kind, cfg), load_events_txt(base))
+    return _engine_rate(_make_engine(kind, _preset_config(base, preset)),
+                        load_events_txt(base))
 
 
 def _rate_line(label, preset, n, rate, per_m, wall, smi):
@@ -1111,14 +1431,12 @@ def check_engine_rates(base, smi):
     both presets: events/s of a warmed process() over the stream and
     device-busy ms per 1M events (torch.profiler). Returns {label:
     events/s}."""
-    from farms_tpu_torch import cli
     from farms_tpu_torch.events.io import load_events_txt
 
     ev = load_events_txt(base)
     rates = {}
     for preset in ("benchmark", "fidelity"):
-        cfg = cli.build_config(cli.build_parser().parse_args(
-            _stream_argv(base, preset)))
+        cfg = _preset_config(base, preset)
         for kind in ("single", "dp", (1, 1)):
             t0 = time.perf_counter()
             label = kind if isinstance(kind, str) else "multihost"
@@ -1127,6 +1445,33 @@ def check_engine_rates(base, smi):
             rates[f"{label} {preset} ranks=1"] = rate
             _phase(f"rates {label} {preset}", t0, f"{rate:.1f} events/s")
     return rates
+
+
+def config5_replay_rank():
+    """One rank of harness config 5's halo engine (parallel/mesh.py `run`
+    entry point): its process_resident call run once from the engine's
+    start state, with every launch count set to 0 just before it, and
+    that call's lanes gathered and decoded as process() decodes them.
+    Returns (every rank's launch counts, the FlowOutput) on rank 0."""
+    import torch
+    import torch.distributed as dist
+    from farms_tpu_torch.bench import harness
+    from farms_tpu_torch.ops import kernels
+    from farms_tpu_torch.parallel.halo import HaloFlowEngine
+
+    cfg, ev = harness.config5_inputs()
+    eng = HaloFlowEngine(cfg)
+    fn, n = eng.process_resident(ev)
+    perm = eng.pack_halo(ev, -(-n // cfg.chunk_size))[2]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = [None] * dist.get_world_size()
+    dist.all_gather_object(counts, dict(kernels.LAUNCHES))
+    block = eng._gather(*out, perm is not None)
+    return counts, (None if block is None
+                    else eng._unpack([block], ev, n, perm))
 
 
 def check_nccl(base, work, smi):
@@ -1140,8 +1485,11 @@ def check_nccl(base, work, smi):
     --multihost way (`_multihost_world`: the CLI's file and
     write_flow_distributed's, each as halo's); then the [rates] of the
     single engine on cuda:0 and of dp and multihost at 2 and 4 ranks
-    (mesh.run), on the same machine. Returns {label: rate}; with
-    fewer than two cards it prints why it did not run."""
+    (mesh.run), on the same machine; and harness config 5 (the halo
+    engine's process_resident over every card: each rank's launch counts
+    over one replay, and that replay's output against the single
+    engine's, as the CLI's). Returns ({label: rate}, {label: (launches,
+    rate)}); with fewer than two cards it prints why it did not run."""
     import torch
     from farms_tpu_torch import cli
     from farms_tpu_torch.events.io import (load_events_txt, read_flow_txt,
@@ -1156,7 +1504,7 @@ def check_nccl(base, work, smi):
               f"`--engine dp` and a multihost world over 2 or 4 ranks) "
               f"need one CUDA device per rank, this machine has {cards}",
               flush=True)
-        return {}
+        return {}, {}
     t0 = time.perf_counter()
     argv = _stream_argv(base, "benchmark")
     args = cli.build_parser().parse_args(argv)
@@ -1183,7 +1531,7 @@ def check_nccl(base, work, smi):
            f"{int((ref.r_local > 0).sum())} valid of {len(ref)}; "
            f"{len(passes)} aperture inputs kept for the tie test")
     out = base + "_FARMSOut_batch.txt"
-    rates = {}
+    rates, paths = {}, {}
     for n in (2, 4):
         if n > cards:
             break
@@ -1218,6 +1566,40 @@ def check_nccl(base, work, smi):
         print(f"[phase nccl multihost world] not run: a (2, 2) world needs "
               f"4 CUDA devices, this machine has {cards}", flush=True)
     t0 = time.perf_counter()
+    from farms_tpu_torch.bench import harness
+    res = harness.config5_sharded()
+    print(f"[harness] {harness.result_lines(res)[0]} card {smi}", flush=True)
+    if res.extra["engine"] != "HaloFlowEngine" or not res.events_per_sec > 0:
+        raise AssertionError(f"harness config 5: {res}")
+    counts, got = mesh.run(config5_replay_rank, cards, "cuda")
+    cfg5, ev5 = harness.config5_inputs()
+    steps = -(-len(ev5) // cfg5.chunk_size) * cfg5.sub_phases
+    want = {k: steps if k in ("local_flow", "aperture", "integral") else 0
+            for k in kernels.LAUNCHES}
+    if any(c != want for c in counts):
+        raise AssertionError(f"harness config 5: launch counts by rank "
+                             f"{counts}, expected {want} on each")
+    passes.clear()
+    kernels.aperture = recording
+    try:
+        single5 = FlowEngine(cfg5, device="cuda").process(ev5)
+    finally:
+        kernels.aperture = aperture
+    ref5_file = write_flow_txt(single5, os.path.join(work, "config5"))
+    with open(ref5_file) as fh:
+        ref5_lines = fh.readlines()
+    said = _compare_with_single(
+        "harness config 5 replay",
+        write_flow_txt(got, os.path.join(work, "config5_halo")), single5,
+        ref5_lines, passes, cfg5)
+    launches = {k: sum(c[k] for c in counts) for k in want}
+    rates["harness config 5"] = res.events_per_sec
+    paths["harness config 5"] = (launches, res.events_per_sec)
+    _phase("harness config 5", t0, f"the halo engine's process_resident "
+           f"over {cards} ranks, one a card: launches {counts[0]} on each "
+           f"rank; a replay from the start state gathered and decoded, "
+           f"against the single engine's process(): {said}")
+    t0 = time.perf_counter()
     rate, per_m, wall = _engine_rate(_make_engine("single", cfg), ev)
     _rate_line("single", "benchmark", 1, rate, per_m, wall, smi)
     rates["single benchmark ranks=1"] = rate
@@ -1233,7 +1615,7 @@ def check_nccl(base, work, smi):
             _rate_line(label, "benchmark", n, rate, per_m, wall, smi)
             rates[f"{label} benchmark ranks={n}"] = rate
             _phase(f"rates {label} ranks={n}", t0, f"{rate:.1f} events/s")
-    return rates
+    return rates, paths
 
 
 def check_perevent_cli(base):
@@ -1387,6 +1769,7 @@ def _start():
     """The card and the kernel build (phase 1); returns (kind, smi)."""
     import torch
     from farms_tpu_torch.ops import _build
+    from farms_tpu_torch.utils import nativeio
 
     t0 = time.perf_counter()
     smi = _nvidia_smi()
@@ -1400,6 +1783,12 @@ def _start():
     _phase("build", t0, f"{len(_build.SOURCES)} sources, one nvcc "
            f"{' '.join(_build.NVCC_FLAGS)} -c each, in parallel -> "
            f"{os.path.relpath(lib)}")
+    t0 = time.perf_counter()
+    native = nativeio.build()
+    if not nativeio.available():
+        raise AssertionError(f"native I/O: {nativeio.build_error()}")
+    _phase("build native", t0, f"g++ {' '.join(nativeio.CXX_FLAGS)} "
+           f"{os.path.relpath(nativeio.SOURCE)} -> {os.path.relpath(native)}")
     return kind, smi
 
 
@@ -1414,8 +1803,10 @@ def nccl_only() -> int:
         return 2
     _, smi = _start()
     with tempfile.TemporaryDirectory() as work:
-        rates = check_nccl(write_stream(work), work, smi)
+        rates, paths = check_nccl(write_stream(work), work, smi)
     print(f"[rates] [Benchmark Main] events/sec by path: {rates}")
+    print(f"[launches] by path: "
+          f"{ {label: c for label, (c, _) in paths.items()} }")
     return 0
 
 
@@ -1426,6 +1817,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    from farms_tpu_torch.utils import nativeio
     dev = torch.device("cuda")
     kind, smi = _start()
     timings = check_kernels(dev)
@@ -1433,10 +1825,18 @@ def main() -> int:
     check_oracle(dev)
     with tempfile.TemporaryDirectory() as work:
         base = write_stream(work)
+        nativeio.reset_calls()
         paths, card_files = check_main_paths(base, work)
+        cli_calls = dict(nativeio.CALLS)
         paths.update(check_engine_paths(base, card_files))
         paths["padded benchmark"] = check_padded(base)
-        rates = check_nccl(base, work, smi)
+        check_native(base, work, card_files, cli_calls)
+        paths.update(check_stream(base, work, card_files))
+        paths["sparse benchmark"] = check_sparse(base, card_files, smi)
+        paths.update(check_resident(base))
+        paths.update(check_harness(smi))
+        rates, nccl_paths = check_nccl(base, work, smi)
+        paths.update(nccl_paths)
         paths["perevent benchmark"] = check_perevent_cli(base)
         paths["serial"] = check_serial_cli(base, dev)
         path_rates = check_rates(base, smi)
@@ -1453,7 +1853,8 @@ def main() -> int:
             source=f"farms_tpu_torch/csrc/{src}",
             replaces=f"farms_tpu/ops/pallas/kernels.py:{line}",
             launches=sum(by_path.values()), launches_by_path=by_path,
-            library_ms=None, **timings[name], **halo))
+            library_ms=timings[name].pop("library_ms", None),
+            **timings[name], **halo))
     print(f"[rates] [Benchmark Main] events/sec by path: {rates}")
     print(f"[rates] process() events/sec, per-event and dense, and the "
           f"single, dp and multihost engines: {path_rates}")

@@ -39,11 +39,12 @@ one rank on the CPU; one rank runs in this process.
   runs on the whole world, the single engine as dp; the multihost engine
   takes tx = the ranks of one host. Without a launcher it is one rank.
 
-Every rank reads the stream; rank 0 prints and writes the output. Still
-refused with NotImplementedError: `--engine spatial` (not ported, GSPMD
-tiling has no torch counterpart), `--wire sparse` (ROADMAP Queue 1 item
-8) and `--SERIAL 1` on more than one rank (serial mode has no multi-rank
-form).
+Every rank reads the stream; rank 0 prints and writes the output.
+`--wire sparse` compacts the output on the device to the lanes that carry
+flow; the sharded engines refuse it with farms_tpu's ValueError. Refused
+with NotImplementedError: `--engine spatial` (not ported, GSPMD tiling has
+no torch counterpart) and `--SERIAL 1` on more than one rank (serial mode
+has no multi-rank form).
 """
 from __future__ import annotations
 
@@ -134,7 +135,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--wire", type=str, default=None,
                    choices=["f32", "f16", "sparse"],
                    help="device->host output precision: f16 = 9 B/event, "
-                        "f32 = 17 B/event (sparse is not ported yet). "
+                        "f32 = 17 B/event, sparse = f16 compacted on the "
+                        "device to the lanes that carry flow (1 B/event "
+                        "plus 4 B per flow word; single engine only). "
                         "Default: f16 on cuda (the benchmark preset), f32 "
                         "on cpu")
     p.add_argument("--layout", type=str, default="xytp",

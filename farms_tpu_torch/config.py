@@ -7,10 +7,6 @@ MAXSTAMP/TSTOSEC, vFlow.cpp:1323 det threshold), with the same validation
 and derived properties. There is no kernel switch: a tensor on a CUDA device
 runs the hand-written kernels, a tensor on the CPU runs their plain PyTorch
 versions (ops/kernels.py).
-
-`require_slice` names what this package does not run yet. Such configs still
-validate here, exactly as in `farms_tpu`, but the engine refuses them rather
-than running something else.
 """
 from __future__ import annotations
 
@@ -194,18 +190,3 @@ class FlowConfig:
         """Surface halo a spatial tile needs from its neighbors."""
         return max(self.max_window, self.support_radius)
 
-
-def require_slice(cfg: FlowConfig) -> None:
-    """Raise NotImplementedError for a feature this package does not run yet.
-
-    Each message names the ROADMAP.md Queue 1 item that ports it.
-    """
-    missing = []
-    if cfg.wire == "sparse":
-        missing.append("wire='sparse' (ROADMAP Queue 1 item 8)")
-    if cfg.width * cfg.height >= 1 << 30:
-        missing.append("sensors of 2^30 pixels or more (the 5-row batch "
-                       "layout, ROADMAP Queue 1 item 5)")
-    if missing:
-        raise NotImplementedError(
-            "not ported to farms_tpu_torch yet: " + "; ".join(missing))

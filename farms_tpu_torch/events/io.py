@@ -1,15 +1,19 @@
 """Event-stream I/O: text-file loading, 11-column output writing, synthetic data.
 
-NumPy-only counterpart of `farms_tpu.events.io` (which it cannot import:
-importing any `farms_tpu` module pulls in the JAX engine). The reference
-inlines this I/O in its flow engine (vFlow.cpp:156-191 reads `x y t p` rows;
-vFlow.cpp:433-442 writes the 11-column `<name>_FARMSOut_batch.txt`).
+Counterpart of `farms_tpu.events.io` (which it cannot import: importing
+any `farms_tpu` module pulls in the JAX engine). The reference inlines this
+I/O in its flow engine (vFlow.cpp:156-191 reads `x y t p` rows;
+vFlow.cpp:433-442 writes the 11-column `<name>_FARMSOut_batch.txt`). The
+native library (utils/nativeio.py) parses the reference's layout and writes
+the output where it is built; NumPy does both otherwise.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+
+from farms_tpu_torch.utils import nativeio
 
 OUTPUT_SUFFIX = "_FARMSOut_batch.txt"  # reference: vFlow.cpp:131
 
@@ -58,11 +62,17 @@ def load_events_txt(path: str, max_events: int | None = None, *,
         raise ValueError(f"time_unit must be 'us' or 's', got {time_unit!r}")
     if not path.endswith(".txt"):
         path = path + ".txt"
-    arr = np.loadtxt(path, dtype=np.float64, ndmin=2, max_rows=max_events)
-    if arr.size == 0:
-        arr = np.zeros((0, 4), dtype=np.float64)
-    ix, iy, it, ip = LAYOUTS[layout]
-    arr = arr[:, [ix, iy, it, ip]]
+    arr = None
+    if layout == "xytp" and time_unit == "us":
+        # native mmap parser (the reference's integer-microsecond layout)
+        arr = nativeio.parse_events(path, max_events)
+    if arr is None:
+        arr = np.loadtxt(path, dtype=np.float64, ndmin=2,
+                         max_rows=max_events)
+        if arr.size == 0:
+            arr = np.zeros((0, 4), dtype=np.float64)
+        ix, iy, it, ip = LAYOUTS[layout]
+        arr = arr[:, [ix, iy, it, ip]]
     x = arr[:, 0].astype(np.int32)
     y = arr[:, 1].astype(np.int32)
     t_raw = arr[:, 2]
@@ -74,6 +84,16 @@ def load_events_txt(path: str, max_events: int | None = None, *,
     return EventBatch(x, y, t, pol)
 
 
+def convert_events_txt(src: str, dst: str, *, layout: str = "txyp",
+                       time_unit: str = "s",
+                       max_events: int | None = None) -> str:
+    """Convert a foreign-layout event file to the reference's `x y t p`
+    integer-microsecond layout (which the native parser reads)."""
+    ev = load_events_txt(src, max_events, layout=layout, time_unit=time_unit)
+    write_events_txt(ev, dst)
+    return dst
+
+
 def write_events_txt(ev: EventBatch, path: str) -> str:
     """Write an event batch in the reference's `x y t p` input format."""
     if not path.endswith(".txt"):
@@ -81,6 +101,18 @@ def write_events_txt(ev: EventBatch, path: str) -> str:
     cols = np.stack([ev.x.astype(np.int64), ev.y.astype(np.int64),
                      ev.t.astype(np.int64), ev.pol.astype(np.int64)], axis=1)
     np.savetxt(path, cols, fmt="%d")
+    return path
+
+
+def write_events_davis_txt(ev: EventBatch, path: str) -> str:
+    """Write an event batch in the Event Camera Dataset `t x y p` layout
+    (float-second stamps with 9 decimals, so microseconds round-trip)."""
+    if not path.endswith(".txt"):
+        path = path + ".txt"
+    with open(path, "w") as fh:
+        for i in range(len(ev)):
+            fh.write(f"{ev.t[i] * 1e-6:.9f} {ev.x[i]} {ev.y[i]} "
+                     f"{ev.pol[i]}\n")
     return path
 
 
@@ -114,6 +146,12 @@ class FlowOutput:
             [getattr(self, f.name).astype(np.float64)
              for f in dataclasses.fields(self)], axis=1)
 
+    @staticmethod
+    def concatenate(parts: list["FlowOutput"]) -> "FlowOutput":
+        return FlowOutput(**{
+            f.name: np.concatenate([getattr(p, f.name) for p in parts])
+            for f in dataclasses.fields(FlowOutput)})
+
 
 def write_flow_txt(out: FlowOutput, base_path: str) -> str:
     """Write `<base_path>_FARMSOut_batch.txt` in the reference's format.
@@ -122,6 +160,8 @@ def write_flow_txt(out: FlowOutput, base_path: str) -> str:
     """
     path = base_path + OUTPUT_SUFFIX
     mat = out.as_matrix()
+    if nativeio.write_flow(path, mat):
+        return path
     with open(path, "w") as fh:
         for row in mat:
             fh.write(
@@ -153,7 +193,13 @@ def read_flow_txt(path: str) -> FlowOutput:
 
 
 def _fmt(v: float) -> str:
-    """Format a float like C++ iostream default (6 significant digits)."""
+    """Format a float like the native writer (native/fast_io.cpp
+    fmt_value): integers without a point, else printf's %.6g, whose
+    non-finite values glibc prints as inf, -inf, nan and -nan (the sign
+    bit of a NaN shows)."""
+    if not np.isfinite(v):
+        return ("-" if np.signbit(v) else "") + ("nan" if np.isnan(v)
+                                                 else "inf")
     if v == int(v) and abs(v) < 1e15:
         return str(int(v))
     return f"{v:.6g}"
@@ -199,6 +245,63 @@ def synthetic_translating_bar(
     t = np.asarray(ts, dtype=np.float64)[order].astype(np.int64).astype(np.uint32)
     pol = np.ones_like(x, dtype=np.int32)
     return EventBatch(x, y, t, pol)
+
+
+def synthetic_rotating_shapes(
+    width: int = 240,
+    height: int = 180,
+    omega_rad_s: float = 2.0 * np.pi,
+    duration_us: int = 500_000,
+    n_spokes: int = 4,
+    t0_us: int = 1000,
+    noise_frac: float = 0.15,
+    seed: int = 0,
+) -> EventBatch:
+    """A DAVIS240-style rotating scene (the Event Camera Dataset's
+    `shapes_rotation` regime): edge events along spokes rotating about the
+    image center (tangential flow, |v| = omega * r) plus background noise.
+    A pixel fires when a spoke's rasterization newly covers it. Same stream
+    as farms_tpu's generator for equal arguments.
+    """
+    rng = np.random.default_rng(seed)
+    cx, cy = width / 2.0, height / 2.0
+    L = 0.45 * min(width, height)
+    d = np.arange(6.0, L, 1.0)
+    dtheta = 1.0 / L          # outermost sample moves ~1 px per step
+    us_per_step = dtheta / omega_rad_s * 1e6
+    n_steps = max(1, int(duration_us / us_per_step))
+    xs, ys, ts = [], [], []
+    prev = {}
+    for k in range(n_steps):
+        t_k = t0_us + k * us_per_step
+        for s in range(n_spokes):
+            th = s * 2.0 * np.pi / n_spokes + k * dtheta
+            px = np.round(cx + d * np.cos(th)).astype(np.int64)
+            py = np.round(cy + d * np.sin(th)).astype(np.int64)
+            cur = px * height + py
+            last = prev.get(s)
+            new = np.ones(len(d), bool) if last is None else cur != last
+            prev[s] = cur
+            keep = new & (px >= 0) & (px < width) & (py >= 0) & (py < height)
+            nn = int(keep.sum())
+            xs.append(px[keep])
+            ys.append(py[keep])
+            ts.append(t_k + rng.uniform(0, us_per_step * 0.5, nn))
+    x = np.concatenate(xs)
+    y = np.concatenate(ys)
+    t = np.concatenate(ts)
+    n_noise = int(len(x) * noise_frac)
+    if n_noise:
+        x = np.concatenate([x, rng.integers(0, width, n_noise)])
+        y = np.concatenate([y, rng.integers(0, height, n_noise)])
+        t = np.concatenate([t, rng.uniform(t0_us, t.max(), n_noise)])
+    order = np.argsort(t, kind="stable")
+    return EventBatch(
+        x=x[order].astype(np.int32),
+        y=y[order].astype(np.int32),
+        t=t[order].astype(np.int64).astype(np.uint32),
+        pol=rng.integers(0, 2, len(x)).astype(np.int32),
+    )
 
 
 def synthetic_random_events(

@@ -18,7 +18,7 @@ from farms_tpu_torch.events.io import EventBatch, FlowOutput
 from farms_tpu_torch.parallel import mesh as meshlib
 from farms_tpu_torch.parallel.halo import gather_lanes
 from farms_tpu_torch.pipeline.engine import (FlowEngine, _empty_output,
-                                             scan_chunk)
+                                             refuse_sparse, scan_chunk)
 from farms_tpu_torch.state.surfaces import SurfaceState
 
 
@@ -59,15 +59,13 @@ class ShardedFlowEngine(FlowEngine):
         Every rank must be given the same stream. Returns the FlowOutput
         where `_collect` leaves the whole output (rank 0 here), else None.
         """
+        refuse_sparse(self.cfg)
         returns = self._returns_output()
         if len(ev) == 0:
             return _empty_output() if returns else None
         blocks = [self._collect(*self._run_call(chunk))
-                  for chunk in self._device_calls(ev, steps_per_call)]
+                  for chunk in self.device_calls(ev, steps_per_call)]
         return self._unpack_outputs(blocks, ev, len(ev)) if returns else None
-
-    def _device_calls(self, ev: EventBatch, steps_per_call: int | None):
-        return self.device_calls(ev, steps_per_call)
 
     def _run_call(self, chunk: dict):
         """One call's micro-steps; returns this rank's wire lanes."""

@@ -42,8 +42,8 @@ from farms_tpu_torch.pipeline.engine import (FlowEngine, _coarse,
                                              _empty_output, _lane_table,
                                              _merge_lanes, _phasing,
                                              _scatter, _take, lane_range,
-                                             wire_maps, wire_n_main_rows,
-                                             wire_pack)
+                                             refuse_sparse, wire_maps,
+                                             wire_n_main_rows, wire_pack)
 from farms_tpu_torch.state.surfaces import (SurfaceState, kill_stale_flow,
                                             kill_stale_flow_in_phase)
 
@@ -437,7 +437,7 @@ class HaloFlowEngine(FlowEngine):
                 "phasing is a FlowEngine feature")
         self.band = mesh.Axis.world()
         self.rank, self.n_shards = self.band.index, self.band.size
-        # the base checks (require_slice, kernel build) see the semantic
+        # the base constructor (the kernel build) sees the semantic
         # geometry; the shards hold the padded one: non-divisible widths
         # pad up, and the pad rows are never written
         super().__init__(cfg, device)
@@ -472,9 +472,9 @@ class HaloFlowEngine(FlowEngine):
         HaloFlowEngine.pack, farms_tpu/parallel/halo.py:738).
 
         Returns (packed, n, perm, centers). packed is int32 [n_calls, spc,
-        rows, m] of (x, y, t, lane_valid, winner) lanes, derived from the
-        compact pack (padded lanes x = y = 0, invalid, never winners), plus
-        the corrected-lane flag row under correction; centers is then the
+        rows, m]: pack()'s 5-row layout of (x, y, t, lane_valid, winner)
+        lanes (padded lanes x = y = 0, invalid, never winners), plus the
+        corrected-lane flag row under correction; centers is then the
         int32 [n_calls, spc, array W, array H] rank-2 center surfaces
         (pack_r2), else None. With more than one rank, each scatter
         sub-group's lanes are reordered by owning row shard into bs-lane
@@ -485,19 +485,13 @@ class HaloFlowEngine(FlowEngine):
         gives the replicated layout for the whole stream (perm None).
         """
         cfg = self.cfg
-        compact, nn = self.pack(ev, steps_per_call=steps_per_call)
-        word = compact[:, :, 0, :]
-        flat = word & 0x3FFFFFFF
-        valid = flat < cfg.width * cfg.height
-        rows_5 = [np.where(valid, flat // cfg.height, 0),
-                  np.where(valid, flat % cfg.height, 0),
-                  compact[:, :, 1, :], valid, (word >> 30) & 1]
+        packed, nn = self.pack(ev, steps_per_call=steps_per_call)
         centers = None
         if cfg.center_correction:
             fl, ctr = self.pack_r2(ev, steps_per_call=steps_per_call)
-            rows_5.append(fl)
+            packed = np.concatenate(
+                [packed, fl[:, :, None, :].astype(np.int32)], axis=2)
             centers = self.array_centers(ctr)
-        packed = np.stack(rows_5, axis=2).astype(np.int32)
         n = self.n_shards
         if n == 1:
             return packed, nn, None, centers
@@ -542,8 +536,36 @@ class HaloFlowEngine(FlowEngine):
         one) and its rows of the center surfaces; rank 0 gathers the wire
         outputs and returns the FlowOutput, the other ranks None.
         """
+        refuse_sparse(self.cfg)
         if len(ev) == 0:
             return _empty_output() if self.rank == 0 else None
+        nn, perm, calls = self._halo_calls(ev, steps_per_call)
+        sharded = perm is not None
+        blocks = [self._gather(*self._run_halo_call(call, sharded), sharded)
+                  for call in calls]
+        if self.rank:
+            return None
+        return self._unpack(blocks, ev, nn, perm)
+
+    def process_resident(self, ev: EventBatch):
+        """The halo engine's FlowEngine.process_resident: the whole stream
+        (len(ev) > 0) as one call of pack_halo's layout, uploaded once
+        (this rank's lanes and rows of the center surfaces). fn() runs
+        every micro-step on every rank (call it on every rank) and returns
+        this rank's wire lanes on the device."""
+        spc = max(1, -(-len(ev) // self.cfg.chunk_size))
+        _, perm, calls = self._halo_calls(ev, spc)
+        call = next(calls)
+
+        def fn():
+            return self._run_halo_call(call, perm is not None)
+
+        return fn, len(ev)
+
+    def _halo_calls(self, ev: EventBatch, steps_per_call: int | None):
+        """(n, perm, calls): pack_halo's stream, and a generator of each
+        call's (this rank's batch int32 [spc, rows, lanes], its rows of
+        the center surfaces or None) on the device."""
         cfg = self.cfg
         n, rank = self.n_shards, self.rank
         packed, nn, perm, centers = self.pack_halo(ev, steps_per_call)
@@ -557,30 +579,33 @@ class HaloFlowEngine(FlowEngine):
                 raise RuntimeError(f"ranks disagree on the batch layout "
                                    f"({int(votes)} of {n} owner-sharded)")
         rows = cfg.array_width // n
+
+        def calls():
+            for c in range(packed.shape[0]):
+                chunk = packed[c][:, rank] if sharded else packed[c]
+                # each call's center surfaces travel with its own batch
+                yield (torch.from_numpy(np.ascontiguousarray(chunk)).to(
+                    self.device), None if centers is None else
+                    torch.from_numpy(np.ascontiguousarray(
+                        centers[c][:, rank * rows:(rank + 1) * rows])).to(
+                            self.device))
+
+        return nn, perm, calls()
+
+    def _run_halo_call(self, call, sharded: bool):
+        """One call's micro-steps on this rank: its wire lanes (int32
+        [spc, C, k], uint8 [spc, k]) on the device."""
+        chunk, t_c2 = call
         bs = self._bs if sharded else 0
-        blocks = []
-        for c in range(packed.shape[0]):
-            chunk = packed[c][:, rank] if sharded else packed[c]
-            chunk = torch.from_numpy(np.ascontiguousarray(chunk)).to(
-                self.device)
-            # each call's center surfaces travel with its own batch
-            t_c2 = (None if centers is None else torch.from_numpy(
-                np.ascontiguousarray(
-                    centers[c][:, rank * rows:(rank + 1) * rows])).to(
-                        self.device))
-            mains, auxs = [], []
-            for i, b in enumerate(chunk):
-                self.state, (main, aux) = _step(
-                    self.state, b[0], b[1], b[2], b[4] != 0, cfg, self.band,
-                    None if t_c2 is None else b[5] != 0,
-                    None if t_c2 is None else t_c2[i], bs)
-                mains.append(main)
-                auxs.append(aux)
-            blocks.append(self._gather(torch.stack(mains),
-                                       torch.stack(auxs), sharded))
-        if rank:
-            return None
-        return self._unpack(blocks, ev, nn, perm)
+        mains, auxs = [], []
+        for i, b in enumerate(chunk):
+            self.state, (main, aux) = _step(
+                self.state, b[0], b[1], b[2], b[4] != 0, self.cfg, self.band,
+                None if t_c2 is None else b[5] != 0,
+                None if t_c2 is None else t_c2[i], bs)
+            mains.append(main)
+            auxs.append(aux)
+        return torch.stack(mains), torch.stack(auxs)
 
     def _gather(self, main: torch.Tensor, aux: torch.Tensor, sharded: bool):
         """One call's wire block on rank 0 (host arrays), None elsewhere.

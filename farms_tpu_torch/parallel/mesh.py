@@ -52,17 +52,21 @@ def barrier() -> None:
 def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None,
-                     device: str | None = None) -> None:
+                     device: str = "cuda") -> None:
     """Join the world of an externally launched run (JAX:
     farms_tpu/parallel/multihost.py:38).
 
     Each argument left None comes from the launcher's environment, as
     `torchrun` sets it: WORLD_SIZE, RANK, LOCAL_RANK, and MASTER_ADDR /
     MASTER_PORT for the rendezvous (`coordinator_address` "host:port"
-    replaces them). `device` "cuda" (the default where a card is visible)
-    binds this rank to cuda:LOCAL_RANK with NCCL, "cpu" takes gloo. Does
-    nothing where a group exists already or the world has one rank.
+    replaces them). `device` "cuda" (the default) binds this rank to
+    cuda:LOCAL_RANK with NCCL and raises RuntimeError where CUDA is not
+    available; "cpu" takes gloo. Does nothing where a group exists already
+    or the world has one rank.
     """
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but CUDA is not "
+                           "available")
     if dist.is_initialized():
         return
     env = os.environ
@@ -71,8 +75,6 @@ def init_distributed(coordinator_address: str | None = None,
     if world <= 1:
         return
     rank = process_id if process_id is not None else int(env["RANK"])
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
     extra = {}
     if torch.device(device).type == "cuda":
         local = int(env.get("LOCAL_RANK", rank % torch.cuda.device_count()))

@@ -93,15 +93,16 @@ class MultiHostFlowEngine(ShardedFlowEngine):
         return state if meshlib.rank_and_size()[0] == 0 else None
 
     # ---- processing --------------------------------------------------------
-    def _device_calls(self, ev: EventBatch, steps_per_call: int | None):
-        if not self._banded:
-            return self.device_calls(ev, steps_per_call)
-        rows = self.cfg.array_width // self.mesh.tx
-        i = self.mesh.i_tx
-        # the shard step scatters the write epoch; only this band's rows
-        # of the center surfaces are uploaded
-        return self.device_calls(ev, steps_per_call, derived_written=False,
-                                 center_rows=slice(i * rows, (i + 1) * rows))
+    def device_calls(self, ev: EventBatch, steps_per_call: int | None = None,
+                     **kw):
+        if self._banded:
+            rows = self.cfg.array_width // self.mesh.tx
+            i = self.mesh.i_tx
+            # the shard step scatters the write epoch; only this band's
+            # rows of the center surfaces are uploaded
+            kw.update(derived_written=False,
+                      center_rows=slice(i * rows, (i + 1) * rows))
+        return super().device_calls(ev, steps_per_call, **kw)
 
     def _run_call(self, chunk: dict):
         if not self._banded:
@@ -160,7 +161,7 @@ class MultiHostFlowEngine(ShardedFlowEngine):
         lo, hi = self._held()[1]
         rows_l, cols_l = [], []
         step0 = 0
-        for chunk in (self._device_calls(ev, None) if n else ()):
+        for chunk in (self.device_calls(ev) if n else ()):
             main, aux = self._run_call(chunk)
             main, aux = main.cpu().numpy(), aux.cpu().numpy()
             spc = main.shape[0]

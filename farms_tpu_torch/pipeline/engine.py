@@ -8,7 +8,10 @@ winners and packs the events as delta-coded 4-byte words (compact2,
 `pack2`), the device decodes them, scatters the winning stamps, fits the
 local planes, updates the flow surfaces, pools the aperture scales and
 gathers the per-event results into the wire format, which the host
-decodes into the 11 output columns (`decode_wire_columns`).
+decodes into the 11 output columns (`decode_wire_columns`). The sparse
+wire (`wire="sparse"`) compacts each call's output on the device to the
+lanes that carry flow (`_sparse_pack_outputs`); `process_resident` runs a
+whole stream as one uploaded call of the explicit 5-row layout, for timing.
 
 Sequential-semantics note: the reference is strictly event-serial. A
 micro-batch instead scatters its events first, then computes every flow
@@ -21,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from farms_tpu_torch.config import FlowConfig, require_slice
+from farms_tpu_torch.config import FlowConfig
 from farms_tpu_torch.events.io import EventBatch, FlowOutput
 from farms_tpu_torch.ops import _build, kernels
 from farms_tpu_torch.ops.aperture import aperture_batch, build_integral
@@ -31,6 +34,7 @@ from farms_tpu_torch.state.surfaces import (SurfaceState, init_state,
                                             kill_stale_flow,
                                             kill_stale_flow_in_phase,
                                             pad_state, strip_state)
+from farms_tpu_torch.utils import nativeio
 
 # compact2 escape slots per micro-step: stamp deltas too large for the
 # word's field ride as exact (lane, delta) pairs
@@ -46,6 +50,14 @@ _W_ESCAPES = 32
 # (farms_tpu/pipeline/engine.py:1148): a chunk this large runs one
 # micro-step a call, so a stream's last call pads at most one step
 _CALL_EVENTS = 131072
+
+# the compact layout keeps the winner flag in bit 30 of the flat pixel
+# index: a sensor of this many pixels or more packs the 5-row layout
+_COMPACT_PIXELS = 1 << 30
+
+# lanes of the sparse wire's payload that ride the aux buffer
+# (_sparse_pack_outputs)
+_SPARSE_RIDER_LANES = 65536
 
 
 def call_steps(cfg: FlowConfig, steps_per_call: int | None = None) -> int:
@@ -143,9 +155,16 @@ def _decode_batch(batch: dict, cfg: FlowConfig):
     flag, the upper bits the unsigned stamp delta to the previous lane;
     every lane at or past an escape lane re-adds that escape's delta.
     compact ("ev" int32 [2, m]): flat index | winner << 30, stamp.
+    5-row ("ev" int32 [5, m]): x, y, t, lane_valid, winner; a padded lane
+    (lane_valid 0, packed at x = y = 0) decodes to the compact layout's
+    sentinel pixel (x = W, y = 0), so it cannot reach pixel (0, 0).
     """
     ev = batch["ev"]
     H = cfg.height
+    if ev.shape[0] == 5:
+        valid = ev[3] != 0
+        return (torch.where(valid, ev[0], cfg.width),
+                torch.where(valid, ev[1], 0), ev[2], ev[4] != 0)
     if "base" in batch:
         word = ev[0]
         esc_l, esc_d = batch["esc"][0], batch["esc"][1]
@@ -481,6 +500,70 @@ def _perevent_phase(t_pre, t_surf, flow_len, flow_vx, flow_vy, xs, ys, t1s,
     return lanes, flow_len, flow_vx, flow_vy
 
 
+def _sparse_pack_outputs(main: torch.Tensor, aux: torch.Tensor):
+    """A call's f16 wire blocks (int32 [steps, 2, m], uint8 [steps, m]) as
+    the sparse wire (farms_tpu/pipeline/engine.py:691): (aux_plus uint8
+    [N + 8 + 4 R], pay int32 [2 N]), N = steps * m, R = min(
+    _SPARSE_RIDER_LANES, 2 N).
+
+    The aux byte stays dense (valid bit 7, scale id bits 0-5) and gains
+    bit 6 where the lane's raw vx/vy word is nonzero ("present"; it is
+    exactly 0 wherever the plane fit did not accept). `pay` holds the
+    present lanes' vx/vy words in stream order, then from offset count_p
+    the valid lanes' true-flow words (valid lanes are present ones), 0
+    after. aux_plus is the dense aux bytes, then the two counts (present,
+    valid) as int32 bytes, then pay[:R] as bytes: a call whose payload
+    fits the rider needs no second read. Both scatters write unique
+    prefix-sum slots; lanes that do not write go to a spare slot 2 N.
+    """
+    steps, _, m = main.shape
+    N = steps * m
+    vx_word = main[:, 0, :].reshape(N)
+    tf_word = main[:, 1, :].reshape(N)
+    auxf = aux.reshape(N)
+    present = vx_word != 0
+    valid = (auxf & 0x80) != 0
+    aux_out = auxf | (present.to(torch.uint8) << 6)
+    idx_p = torch.cumsum(present, 0, dtype=torch.int32) - 1
+    idx_v = torch.cumsum(valid, 0, dtype=torch.int32) - 1
+    count_p = idx_p[-1] + 1
+    counts = torch.stack([count_p, idx_v[-1] + 1])
+    pay = main.new_zeros(2 * N + 1)
+    pay[torch.where(present, idx_p, 2 * N).to(torch.int64)] = vx_word
+    pay[torch.where(valid, idx_v + count_p, 2 * N).to(torch.int64)] = tf_word
+    pay = pay[:2 * N]
+    R = min(_SPARSE_RIDER_LANES, 2 * N)
+    aux_plus = torch.cat([aux_out, counts.view(torch.uint8),
+                          pay[:R].view(torch.uint8)])
+    return aux_plus, pay
+
+
+def _fetch_sparse(out):
+    """One call's sparse wire on the host: (dense aux uint8 [N], present
+    lanes' vx/vy words, valid lanes' true-flow words). Reads aux_plus
+    (counts and rider included), then the payload prefix only where it
+    is longer than the rider."""
+    aux_plus, pay = out
+    N2 = pay.shape[0]
+    R = (aux_plus.shape[0] - N2 // 2 - 8) // 4
+    a = aux_plus.cpu().numpy()
+    rider = a[a.size - 4 * R:].view(np.int32)
+    cp, cv = (int(v) for v in a[a.size - 4 * R - 8:a.size - 4 * R]
+              .view(np.int32))
+    k = cp + cv
+    both = rider[:k] if k <= R else pay[:k].cpu().numpy()
+    return a[:a.size - 4 * R - 8], both[:cp], both[cp:k]
+
+
+def refuse_sparse(cfg: FlowConfig) -> None:
+    """The sharded engines ship the dense wire (farms_tpu/pipeline/
+    engine.py:1172-1175)."""
+    if cfg.wire == "sparse":
+        raise ValueError(
+            "wire='sparse' requires the base (unsharded) engine "
+            "dispatch; sharded engines ship the dense f16/f32 wire")
+
+
 def scan_chunk(state: SurfaceState, chunk: dict, cfg: FlowConfig,
                lanes: tuple[int, int] | None = None):
     """Run the micro-steps of one call in order.
@@ -504,7 +587,6 @@ class FlowEngine:
     """Host-side streaming loop carrying device state across calls."""
 
     def __init__(self, cfg: FlowConfig, device="cuda"):
-        require_slice(cfg)
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not "
@@ -538,17 +620,23 @@ class FlowEngine:
         return strip_state(self.state, self.cfg)
 
     # ---- host-side packing -------------------------------------------------
-    def pack(self, ev: EventBatch, steps_per_call: int | None = None):
+    def pack(self, ev: EventBatch, steps_per_call: int | None = None,
+             compact: bool = False):
         """Normalize, pad, and pack an event stream for the device.
 
-        Returns (packed int32 [n_calls, steps, 2, m] host array, n) where n
-        is the real event count; the two rows are x*H+y | winner<<30 and
-        t (the compact layout; require_slice keeps W*H below 2^30, so the
-        index never reaches the winner bit). The first call latches
+        Returns (packed int32 [n_calls, steps, rows, m] host array, n)
+        where n is the real event count; rows is 5 (x, y, t, lane_valid,
+        winner; padded lanes at x = y = 0, invalid, never winners) or, with
+        `compact`, 2 (x*H+y | winner<<30, t; padded lanes at the sentinel
+        W*H). A sensor of 2^30 pixels or more would alias the winner bit,
+        so it packs 5 rows whatever `compact` says. The compact pack runs
+        in the native library where it is built. The first call latches
         t0 = first stamp (vFlow.cpp:194, 241); later calls continue the
         same timeline.
         """
         cfg = self.cfg
+        if compact and cfg.width * cfg.height >= _COMPACT_PIXELS:
+            compact = False
         n = len(ev)
         if self._t0 is None and n:
             self._t0 = np.uint32(ev.t[0])
@@ -559,6 +647,14 @@ class FlowEngine:
         n_calls = max(1, -(-n // per_call))
         total = n_calls * per_call
         pad_total = total - n
+
+        if compact:
+            nat = nativeio.pack_compact(
+                ev.x, ev.y, ev.t, int(self._t0 or 0), cfg.width, cfg.height,
+                m, n_calls * spc,
+                subphases=cfg.sub_phases * cfg.causal_snapshots)
+            if nat is not None:
+                return nat.reshape(n_calls, spc, 2, m), n
 
         x = np.clip(ev.x.astype(np.int32), 0, cfg.width - 1)
         y = np.clip(ev.y.astype(np.int32), 0, cfg.height - 1)
@@ -593,11 +689,18 @@ class FlowEngine:
         winner = winner.reshape(-1)
         winner[n:] = 0
 
-        word = flat.reshape(-1).astype(np.int32)
-        word |= winner << 30
-        packed = np.empty((n_calls, spc, 2, m), dtype=np.int32)
-        packed[:, :, 0, :] = word.reshape(n_calls, spc, m)
-        packed[:, :, 1, :] = tp.reshape(n_calls, spc, m)
+        if compact:
+            word = flat.reshape(-1).astype(np.int32)
+            word |= winner << 30
+            packed = np.empty((n_calls, spc, 2, m), dtype=np.int32)
+            packed[:, :, 0, :] = word.reshape(n_calls, spc, m)
+            packed[:, :, 1, :] = tp.reshape(n_calls, spc, m)
+            return packed, n
+
+        packed = np.empty((n_calls, spc, 5, m), dtype=np.int32)
+        for row, arr in enumerate((xp, yp, tp, np.arange(total) < n,
+                                   winner)):
+            packed[:, :, row, :] = arr.reshape(n_calls, spc, m)
         return packed, n
 
     def pack_wesc(self, ev: EventBatch, steps_per_call: int | None = None):
@@ -723,14 +826,15 @@ class FlowEngine:
         (flat idx | winner << ib | stamp-delta << ib+1, ib from
         compact2_bits) and aux = (bases int32 [n_calls, spc] per-step
         first stamps, escapes int32 [n_calls, spc, 2, E] oversized-delta
-        (lane, true delta) pairs). `aux` is None and `packed` the compact
-        layout from pack() when a step overflows the escape budget or the
-        sensor leaves fewer than 8 delta bits: exact stamps always win
-        over wire size.
+        (lane, true delta) pairs). `aux` is None and `packed` pack()'s
+        compact (or, at 2^30 pixels, 5-row) layout when a step overflows
+        the escape budget or the sensor leaves fewer than 8 delta bits:
+        exact stamps always win over wire size.
         """
-        packed, n = self.pack(ev, steps_per_call=steps_per_call)
+        packed, n = self.pack(ev, steps_per_call=steps_per_call,
+                              compact=True)
         ib, db = compact2_bits(self.cfg)
-        if db < 8:
+        if packed.shape[2] != 2 or db < 8:
             return packed, None, n
         E = _C2_ESCAPES
         pu = packed.view(np.uint32)
@@ -762,13 +866,30 @@ class FlowEngine:
 
     def _unpack_outputs(self, out_blocks, ev: EventBatch, n: int) -> FlowOutput:
         """Decode wire blocks [(main int32 [steps, C, m], aux uint8
-        [steps, m])] into the 11-column FlowOutput (first n lanes)."""
+        [steps, m])], or on the sparse wire [(aux uint8 [N], present
+        lanes' vx/vy words, valid lanes' true-flow words)] (_fetch_sparse),
+        into the 11-column FlowOutput (first n lanes)."""
         cfg = self.cfg
-        C = wire_n_main_rows(cfg)
-        main = np.concatenate(
-            [mo.transpose(1, 0, 2).reshape(C, -1) for mo, _ in out_blocks],
-            axis=1)[:, :n]
-        aux = np.concatenate([ao.reshape(-1) for _, ao in out_blocks])[:n]
+        if cfg.wire == "sparse":
+            # re-expand the payloads to lane order (absent lanes are
+            # exactly 0) and clear the present bit for the scale decode
+            mains, auxs = [], []
+            for a, pp, pv in out_blocks:
+                vxw = np.zeros(a.size, np.int32)
+                vxw[(a & 0x40) != 0] = pp
+                tfw = np.zeros(a.size, np.int32)
+                tfw[(a & 0x80) != 0] = pv
+                mains.append(np.stack([vxw, tfw]))
+                auxs.append(a & np.uint8(0xBF))
+            main = np.concatenate(mains, axis=1)[:, :n]
+            aux = np.concatenate(auxs)[:n]
+        else:
+            C = wire_n_main_rows(cfg)
+            main = np.concatenate(
+                [mo.transpose(1, 0, 2).reshape(C, -1)
+                 for mo, _ in out_blocks], axis=1)[:, :n]
+            aux = np.concatenate(
+                [ao.reshape(-1) for _, ao in out_blocks])[:n]
         cols = decode_wire_columns(main, aux, cfg)
         t = (ev.t.astype(np.uint32) - self._t0).astype(np.uint32)
         return FlowOutput(
@@ -790,14 +911,20 @@ class FlowEngine:
 
     # ---- processing --------------------------------------------------------
     def device_calls(self, ev: EventBatch, steps_per_call: int | None = None,
-                     derived_written: bool = True, center_rows=slice(None)):
+                     derived_written: bool = True, center_rows=slice(None),
+                     rows5: bool = False):
         """Pack a stream (len(ev) > 0) and yield each call's micro_step
         batch dict on the device, in order; each call's escapes and
         center surfaces travel with its own batch. `derived_written`
         False skips pack_wesc (a step that always scatters the epoch);
         `center_rows` are the rows of the center surfaces a rank
-        uploads."""
-        packed, aux2, _ = self.pack2(ev, steps_per_call=steps_per_call)
+        uploads; `rows5` packs the explicit 5-row layout instead of the
+        delta-coded words (pack2)."""
+        if rows5:
+            packed, _ = self.pack(ev, steps_per_call=steps_per_call)
+            aux2 = None
+        else:
+            packed, aux2, _ = self.pack2(ev, steps_per_call=steps_per_call)
         # the escapes of the derived `written` exist on the dense path only
         wesc, w_ok = (self.pack_wesc(ev, steps_per_call=steps_per_call)
                       if self.cfg.use_dense and derived_written
@@ -818,12 +945,19 @@ class FlowEngine:
                     self.array_centers(r2[1][c])[:, center_rows])).to(dev)
             yield chunk
 
+    def _run_call(self, chunk: dict):
+        """One call's micro-steps; returns the call's wire blocks on the
+        device."""
+        self.state, out = scan_chunk(self.state, chunk, self.cfg)
+        return out
+
     def process(self, ev: EventBatch,
                 steps_per_call: int | None = None) -> FlowOutput:
         """Process an event stream (or a continuation of one).
 
         Single-threaded: packs on the host, uploads each call's batch, runs
-        its micro-steps, and copies the wire outputs back. A call holds
+        its micro-steps, and copies the wire outputs back (on the sparse
+        wire, compacted on the device first). A call holds
         call_steps(cfg, steps_per_call) micro-steps.
         """
         n = len(ev)
@@ -831,9 +965,32 @@ class FlowEngine:
             return _empty_output()
         blocks = []
         for chunk in self.device_calls(ev, steps_per_call):
-            self.state, (main, aux) = scan_chunk(self.state, chunk, self.cfg)
-            blocks.append((main.cpu().numpy(), aux.cpu().numpy()))
+            main, aux = self._run_call(chunk)
+            if self.cfg.wire == "sparse":
+                blocks.append(_fetch_sparse(_sparse_pack_outputs(main, aux)))
+            else:
+                blocks.append((main.cpu().numpy(), aux.cpu().numpy()))
         return self._unpack_outputs(blocks, ev, n)
+
+    def process_resident(self, ev: EventBatch):
+        """Upload a whole stream (len(ev) > 0) once, as one call of the
+        explicit 5-row layout (JAX: farms_tpu/pipeline/engine.py:1309).
+
+        Returns (fn, n): fn() runs every micro-step of the stream from the
+        engine's current state, leaves the new state in the engine and
+        returns the call's wire blocks on the device; n is the event
+        count. The call carries its escapes (dense path) and correction
+        data as process() does. Replaying fn() from the state before its
+        first call (`engine.state`, which no step modifies in place)
+        reproduces the same outputs; the benchmark harness times it so.
+        """
+        spc = max(1, -(-len(ev) // self.cfg.chunk_size))
+        chunk = next(self.device_calls(ev, spc, rows5=True))
+
+        def fn():
+            return self._run_call(chunk)
+
+        return fn, len(ev)
 
 
 def decode_wire_columns(main, aux, cfg: FlowConfig) -> dict:

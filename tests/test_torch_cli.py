@@ -103,16 +103,15 @@ def test_fidelity_modes_run(tmp_path, capsys, flags):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--wire", "sparse"], ["--engine", "spatial"],
+    ["--engine", "spatial"],
     ["--SERIAL", "1", "--engine", "halo", "--devices", "2"],
     ["--SERIAL", "1", "--engine", "dp", "--devices", "2"],
     ["--SERIAL", "1", "--devices", "2"],
     ["--SERIAL", "1", "--engine", "multihost", "--devices", "4"],
 ])
 def test_unported_modes_raise(tmp_path, flags):
-    """Still refused: the sparse wire (ROADMAP Queue 1 item 8), spatial
-    tiling (not ported) and --SERIAL 1 on more than one rank, for every
-    engine."""
+    """Still refused: spatial tiling (not ported) and --SERIAL 1 on more
+    than one rank, for every engine."""
     _, base = _events_file(tmp_path, "x", n=10)
     with pytest.raises(NotImplementedError):
         tcli.main(["--filename", base, "--width", "64", "--height", "64",

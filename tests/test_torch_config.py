@@ -80,12 +80,26 @@ def test_validation_errors_match(jax_config, kw):
     (dict(width=32768, height=32768), "Queue 1 item 5"),
 ])
 def test_unported_features_raise(kw, item):
-    cfg = tconfig.FlowConfig(**kw)
-    with pytest.raises(NotImplementedError, match=item):
-        tconfig.require_slice(cfg)
+    """The two features the port refused until its last slice no longer
+    raise: the single engine takes the sparse wire, and a sensor of 2^30
+    pixels or more, whose compact packs fall back to the 5-row layout as
+    in farms_tpu (engine.py:823-827). The 2^30-pixel engine is built on
+    the meta device, which allocates no surface, since only its host
+    packing is checked."""
+    from farms_tpu_torch.events.io import synthetic_random_events
     from farms_tpu_torch.pipeline.engine import FlowEngine
-    with pytest.raises(NotImplementedError):
-        FlowEngine(cfg, device="cpu")
+    cfg = tconfig.FlowConfig(**kw, chunk_size=256)
+    big = cfg.width * cfg.height >= 1 << 30
+    eng = FlowEngine(cfg, device="meta" if big else "cpu")
+    ev = synthetic_random_events(300, width=cfg.width, height=cfg.height)
+    packed, aux2, n = eng.pack2(ev)
+    assert n == 300
+    if big:
+        assert packed.shape[2] == 5 and aux2 is None
+        assert eng.pack(ev, compact=True)[0].shape[2] == 5
+    else:
+        assert packed.shape[2] == 1 and aux2 is not None
+        assert len(eng.process(ev)) == 300
 
 
 @pytest.mark.parametrize("kw", [
@@ -102,7 +116,6 @@ def test_fidelity_features_accepted(kw):
     """The fidelity slice's features, filter sizes past 5 and the
     per-event formulation run."""
     cfg = tconfig.FlowConfig(**kw)
-    tconfig.require_slice(cfg)
     from farms_tpu_torch.pipeline.engine import FlowEngine
     FlowEngine(cfg, device="cpu")
 
@@ -111,16 +124,16 @@ def test_padded_geometry_accepted():
     """Padded array geometry runs on the single engine (refused before
     the multi-host slice): its state sits at the array geometry."""
     cfg = tconfig.FlowConfig(width=100, padded_width=128)
-    tconfig.require_slice(cfg)
     from farms_tpu_torch.pipeline.engine import FlowEngine
     eng = FlowEngine(cfg, device="cpu")
     assert tuple(eng.state.t_surf.shape) == (128, 320)
 
 
 def test_slice_config_accepted():
-    tconfig.require_slice(tconfig.FlowConfig(
-        chunk_size=131072, sub_phases=2, wire="f16"))
-    tconfig.require_slice(tconfig.FlowConfig(filter_size=5, wire="f32"))
+    from farms_tpu_torch.pipeline.engine import FlowEngine
+    FlowEngine(tconfig.FlowConfig(chunk_size=131072, sub_phases=2,
+                                  wire="f16"), device="cpu")
+    FlowEngine(tconfig.FlowConfig(filter_size=5, wire="f32"), device="cpu")
 
 
 def _imports(path: pathlib.Path):

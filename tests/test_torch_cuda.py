@@ -622,3 +622,53 @@ def test_cuda_perevent_and_serial_engines_equal_cpu(cuda):
         for col in ("vx", "vy"):
             err = np.abs(getattr(got, col) - getattr(want, col))[valid]
             assert (err <= 1e-5 * want.r_local[valid] + 1e-6).all(), col
+
+
+@pytest.mark.cuda
+def test_cuda_resident_sparse_and_stream_equal_cpu(cuda):
+    """On the card: process_resident (the 5-row batch) decodes to
+    process()'s output bit for bit; the sparse wire to the f16 wire's; a
+    stream of unaligned chunks gives the CPU's valid flags and scale ids;
+    each launches the kernels (2 phases a micro-step)."""
+    import dataclasses
+
+    from farms_tpu_torch.events.io import synthetic_translating_bar
+    from farms_tpu_torch.events.stream import stream_flow
+    from farms_tpu_torch.events.io import FlowOutput
+    from farms_tpu_torch.pipeline.engine import FlowEngine
+
+    ev = synthetic_translating_bar(width=64, height=64, bar_len=20,
+                                   duration_us=30000, jitter_us=20, seed=1)
+    cfg = TConfig(width=64, height=64, chunk_size=256, sub_phases=2,
+                  wire="f16")
+    steps = -(-len(ev) // 256)
+    want = FlowEngine(cfg, device=cuda).process(ev)
+    eng = FlowEngine(cfg, device=cuda)
+    fn, n = eng.process_resident(ev)
+    tk.reset_launches()
+    main, aux = fn()
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES},
+                           "local_flow": 2 * steps, "aperture": 2 * steps,
+                           "integral": 2 * steps}
+    got = eng._unpack_outputs([(main.cpu().numpy(), aux.cpu().numpy())],
+                              ev, n)
+    sparse = FlowEngine(dataclasses.replace(cfg, wire="sparse"),
+                        device=cuda).process(ev)
+    for out in (got, sparse):
+        for col in ("vx", "vy", "r_true", "theta_true", "r_local",
+                    "theta_local", "scale"):
+            a, b = getattr(out, col), getattr(want, col)
+            assert a.tobytes() == b.tobytes(), col
+
+    def chunks():
+        for s in range(0, len(ev), 300):
+            yield ev[s:s + 300]
+
+    card = FlowOutput.concatenate(list(stream_flow(
+        FlowEngine(cfg, device=cuda), chunks())))
+    cpu = FlowOutput.concatenate(list(stream_flow(
+        FlowEngine(cfg, device="cpu"), chunks())))
+    np.testing.assert_array_equal(card.r_local > 0, cpu.r_local > 0)
+    np.testing.assert_array_equal(card.scale, cpu.scale)
+    assert (cpu.r_local > 0).sum() > 100

@@ -316,7 +316,7 @@ def test_packers_bitwise_equal(jax_engine_mod, name):
     je = jeng.FlowEngine(JConfig(**kw))
     te = teng.FlowEngine(TConfig(**kw), device="cpu")
     jp, jn = je.pack(ev, compact=True)
-    tp, tn = te.pack(ev)
+    tp, tn = te.pack(ev, compact=True)
     assert jn == tn
     np.testing.assert_array_equal(tp, jp, err_msg="pack")
     jp, jaux, _ = je.pack2(ev)
@@ -356,7 +356,7 @@ def test_upload_layouts_and_written_paths_agree(name):
 
     class Compact(teng.FlowEngine):
         def pack2(self, ev, steps_per_call=None):
-            packed, n = self.pack(ev, steps_per_call)
+            packed, n = self.pack(ev, steps_per_call, compact=True)
             return packed, None, n
 
     class Epoch(teng.FlowEngine):

@@ -216,8 +216,8 @@ def test_port_coarse_pooling_matches_one_pass():
     cfg_u = TConfig(width=W, height=H, chunk_size=m, sub_phases=2,
                     kill_old_flow_time_us=1 << 29)
     cfg_c = dataclasses.replace(cfg_u, aperture_sub_phases=1)
-    packed, _ = teng.FlowEngine(cfg_u, device="cpu").pack(_bar()[:m],
-                                                          steps_per_call=1)
+    packed, _ = teng.FlowEngine(cfg_u, device="cpu").pack(
+        _bar()[:m], steps_per_call=1, compact=True)
     batch = {"ev": torch.from_numpy(packed[0, 0])}
     st_u, (main_u, aux_u) = teng.micro_step(init_state(cfg_u, "cpu"), batch,
                                             cfg_u)

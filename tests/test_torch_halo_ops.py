@@ -323,7 +323,7 @@ def test_pack_one_rank_is_the_5_row_layout():
     te = THalo(TConfig(**kw), device="cpu")
     assert (te.rank, te.n_shards) == (0, 1)
     tp, tn, perm, centers = te.pack_halo(ev)
-    compact, _ = te.pack(ev)
+    compact, _ = te.pack(ev, compact=True)
     assert perm is None and centers is None and tn == 500
     flat = tp[:, :, 0] * 48 + tp[:, :, 1]
     valid = tp[:, :, 3] == 1

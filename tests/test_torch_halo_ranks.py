@@ -49,3 +49,21 @@ def checkpoint_runs(cfg, ev, cut, halo_path, single_path, device="cpu"):
     from_single = restored(single_path).process(ev[cut:])
     return dict(one=one, first=first, second=second,
                 from_single=from_single)
+
+
+def resident_runs(cfg, ev, device="cpu"):
+    """HaloFlowEngine.process_resident(ev) on this rank's group, replayed
+    twice from the state before its first call (as the benchmark harness
+    replays it); each replay's lanes gathered and decoded as process()
+    decodes them. Returns the two FlowOutputs on rank 0."""
+    eng = HaloFlowEngine(cfg, device=device)
+    fn, n = eng.process_resident(ev)
+    perm = eng.pack_halo(ev, -(-n // cfg.chunk_size))[2]
+    start = eng.state
+    outs = []
+    for _ in range(2):
+        eng.state = start
+        block = eng._gather(*fn(), perm is not None)
+        outs.append(None if block is None
+                    else eng._unpack([block], ev, n, perm))
+    return outs
