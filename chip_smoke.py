@@ -28,8 +28,9 @@ Phases, each printed with its result and seconds:
    the shape the library reports; the float64 integral kernel
    against the plain integral (also on the CPU), with the cells where
    CUDA's own innermost-dimension cumsum departs from the sequential order;
-   the aperture pass (integral and pool; the pool's own device time
-   beside it) with 11 scales and once at 260 x 346 with the y-clamp quirk;
+   the aperture pass (integral and pool; the pool's own device time,
+   bound and share beside it, and the L2 bytes its design reads a pass)
+   with 11 scales and once at 260 x 346 with the y-clamp quirk;
 3. the kernels' halo modes (the row shards of the halo engine,
    farms_tpu_torch/parallel/halo.py) at 320 x 320 cut into 1, 2 and 4
    bands (320, 160 and 80 rows: the shards of `--devices 1`, 2 and 4):
@@ -117,7 +118,9 @@ the one before it a JSON summary of the kernels, with each kernel's bound
 over 67 TFLOP/s in f32 and 34 TFLOP/s in f64, the H100 SXM's data-sheet
 peaks) and its share (bound over device time) for its whole-sensor case,
 (`halo_*`) for one 80-row band and (`halo1_*`) for the one band of 320
-rows;
+rows; the aperture entry adds the pool's own bound (`pool_bound_ms`: the
+float64 integral read from device memory, not built on the chip) and its
+share of the pool's device time (`pool_share`);
 the last line is {"ok": true, "device": {...}}. Any failure raises and
 exits non-zero, and without CUDA the script exits non-zero before
 printing any result.
@@ -280,6 +283,21 @@ def aperture_bound(n_scales: int, rows: int, Ha: int,
                       (5 * n_scales + 1) * px, 12 * n_scales * px)
     return _bound(6 * px * 4, (4 + 5 * n_scales + 1) * px,
                   (8 + 12 * n_scales) * px)
+
+
+def pool_l2_bytes(shape: dict, n_scales: int, rows: int, Ha: int,
+                  n_won: int) -> tuple:
+    """The bytes one pool call reads from L2 by its design (its tile and
+    strips, kernels.aperture_shape): each block's copies, float64 count
+    and length at 4 corner kinds, of the whole rectangle at the first
+    scale and of the strip each later scale gains; and the vx and vy
+    corners of the winning scale (8 float64) at each of the n_won pixels
+    whose best mean length is > 0. Returns (slab bytes, winner bytes)."""
+    tx, ty = shape["tile_rows"], shape["tile_cols"]
+    jx, jy = shape["strip_rows"], shape["strip_cols"]
+    cells = tx * ty + (n_scales - 1) * (jx * ty + (tx - jx) * jy)
+    blocks = -(-rows // tx) * -(-Ha // ty)
+    return blocks * 8 * cells * 8, n_won * 8 * 8
 
 
 def integral_bound(rows: int, cols: int) -> dict:
@@ -536,15 +554,30 @@ def check_kernels(dev):
         pool_ms = _device_ms(lambda: kernels.aperture(*ins, cfg),
                              "aperture_kernel")
         plain_ms = _median_ms(lambda: plain.dense_aperture(*ins, cfg))
+        # the pool alone reads the float64 integral from device memory
+        pool_bound = aperture_bound(cfg.num_scales, W, H,
+                                    integ_rows=W + 1)["bound_ms"]
+        pool_share = pool_bound / pool_ms if pool_ms else None
+        shape = kernels.aperture_shape(W, H, cfg.window_jump)
+        n_won = int((plain.dense_aperture(*ins, cfg, want_ids=True)[3]
+                     .amax(0) > 0).sum())
+        slab_b, win_b = pool_l2_bytes(shape, cfg.num_scales, W, H, n_won)
         if (W, H) == (SENSOR, SENSOR):
             results["aperture"] = dict(
                 ms=ms, device_ms=device_ms, pool_device_ms=pool_ms,
-                plain_ms=plain_ms, **aperture_bound(cfg.num_scales, W, H))
+                plain_ms=plain_ms, **aperture_bound(cfg.num_scales, W, H),
+                pool_bound_ms=pool_bound, pool_share=pool_share)
         _phase(f"kernel aperture {W}x{H} quirk={quirk}", t0,
                f"equal to plain ({cfg.num_scales} scales, {pooled} pixels "
                f"pooled past scale 0); max_abs_err {err}; kernel {ms:.4f} "
                f"ms (device: the pass {_fmt_ms(device_ms)}, its pool "
-               f"{_fmt_ms(pool_ms)}), plain {plain_ms:.4f} ms")
+               f"{_fmt_ms(pool_ms)}), plain {plain_ms:.4f} ms; the pool's "
+               f"own bound {pool_bound:.6f} ms (float64 integral from "
+               f"device memory), share {pool_share}; its L2 reads a pass "
+               f"by design ({shape}): slabs {slab_b / 1e6:.2f} MB + winner "
+               f"corners {win_b / 1e6:.2f} MB ({n_won} pixels), against "
+               f"{W * H * cfg.num_scales * 128 / 1e6:.2f} MB read corner by "
+               f"corner for 4 fields")
     for name, r in results.items():
         r["max_abs_err"] = errs[name]
         r["share"] = _share(r)

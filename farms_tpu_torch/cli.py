@@ -247,9 +247,9 @@ def _refuse_unported(args) -> None:
             "multi-rank form")
     if args.engine == "spatial":
         raise NotImplementedError(
-            "--engine spatial is not ported (ROADMAP Queue 1, \"Do not "
-            "port\": GSPMD tiling has no torch counterpart; --engine halo "
-            "shards the rows explicitly)")
+            "--engine spatial is not ported yet (ROADMAP Queue 1: 2-D "
+            "tiles with explicit halos in both axes; --engine halo shards "
+            "the rows explicitly)")
 
 
 def main(argv=None) -> int:

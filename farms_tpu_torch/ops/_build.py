@@ -39,6 +39,10 @@ _SIGNATURES = {
     # flow_vy, tvx, tvy, scale, stream
     "farms_aperture": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                        _P),
+    # rows, Ha, jump, tile_rows, tile_cols, slab_rows, slab_cols,
+    # strip_rows, strip_cols, shared_bytes (out)
+    "farms_aperture_shape": (_I, _I, _I, _IP, _IP, _IP, _IP, _IP, _IP,
+                             _IP),
     # flow_len, flow_vx, flow_vy, rows, cols, integ, stream
     "farms_integral": (_P, _P, _P, _I, _I, _P, _P),
 }

@@ -71,6 +71,27 @@ def local_flow_shape(filter_size: int) -> dict:
                     (o.value for o in out)))
 
 
+def aperture_shape(rows: int, Ha: int, jump: int) -> dict:
+    """How the pool kernel runs on rows x Ha pixels at this window jump,
+    as csrc/aperture.cu decides it on the current card
+    (farms_aperture_shape): its tile, `tile_rows` x `tile_cols` pixels
+    (two a thread; the rows chosen so that the grid fits the card's SMs),
+    each corner kind's slab of `slab_rows` x `slab_cols` (count, length)
+    slots, the strip each scale after the first copies (`strip_rows`
+    whole rows, `strip_cols` columns of the others; the whole tile where
+    no cell carries over), and `shared_bytes` of one block. Needs a CUDA
+    device."""
+    out = [ctypes.c_int() for _ in range(7)]
+    rc = _build.load().farms_aperture_shape(
+        rows, Ha, jump, *(ctypes.byref(o) for o in out))
+    if rc != 0:
+        raise ValueError(f"no pool kernel for {rows} x {Ha} at window jump "
+                         f"{jump}: cudaError_t {rc}")
+    return dict(zip(("tile_rows", "tile_cols", "slab_rows", "slab_cols",
+                     "strip_rows", "strip_cols", "shared_bytes"),
+                    (o.value for o in out)))
+
+
 def _band_rows(t: torch.Tensor, name: str, cfg: FlowConfig, halo: int,
                row_offset: int) -> int:
     """Core rows of a [rows + 2*halo, Ha] band (or of the [array W, Ha]
@@ -174,10 +195,11 @@ def aperture(flow_len: torch.Tensor, flow_vx: torch.Tensor,
     f32 [W, H] flow surfaces (the array geometry of a padded config) in;
     (true_vx f32, true_vy f32, scale i32) out.
     The integral kernel builds the float64 integral image (`integral`),
-    then the pool kernel pools every scale. Band mode (parallel/halo.py): `integ` is
-    the float64 integral band [4, rows + 2*halo + 1, Ha + 1] of a row
-    shard, halo >= max_window + 1, and the flow surfaces and outputs are
-    the shard's core rows [rows, Ha].
+    then the pool kernel scans every scale on the count and length fields
+    from shared-memory slabs and reads vx and vy at the winning scale.
+    Band mode (parallel/halo.py): `integ` is the float64 integral band
+    [4, rows + 2*halo + 1, Ha + 1] of a row shard, halo >= max_window + 1,
+    and the flow surfaces and outputs are the shard's core rows [rows, Ha].
     """
     if (integ is None) != (halo == 0):
         raise ValueError("an integral band comes with its halo, and a halo "

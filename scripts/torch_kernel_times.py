@@ -18,10 +18,12 @@ on one card, in turns:
 static shared memory from `nvcc -Xptxas -v`, and, where the tree has
 ops/kernels.local_flow_shape, the local-flow kernel's tile rows, slab
 rows and shared bytes (the general kernel's ring and slots are dynamic
-shared memory) at each filter size timed. `--match REGEX` times only the
-cases whose name matches. Prints one JSON line per case and a summary
-line; a case that the tree refuses (NotImplementedError) prints what it
-raised.
+shared memory) at each filter size timed; where it has
+ops/kernels.aperture_shape, the pool's tile, slabs and dynamic shared
+bytes at 320 x 320, 260 x 346 and an 80-row band (window jump 5).
+`--match REGEX` times only the cases whose name matches. Prints one JSON
+line per case and a summary line; a case that the tree refuses
+(NotImplementedError) prints what it raised.
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -113,6 +115,13 @@ def main() -> int:
             for k in (3, 5, 7, 9, 11, 21):
                 print(json.dumps({"tree": label, "filter_size": k,
                                   "shape": kernels.local_flow_shape(k)}),
+                      flush=True)
+        if hasattr(kernels, "aperture_shape"):
+            for rows, Ha in ((SENSOR, SENSOR), (260, 346), (SENSOR // 4,
+                                                            SENSOR)):
+                print(json.dumps({"tree": label, "pool": [rows, Ha],
+                                  "shape": kernels.aperture_shape(rows, Ha,
+                                                                  5)}),
                       flush=True)
 
     def T(*arrays):

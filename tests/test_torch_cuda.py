@@ -316,19 +316,84 @@ def test_cuda_integral_kernel_matches_plain(cuda, geom, wide):
                        tdf.build_integral(*cpu).view(torch.int64))
 
 
+# (sensor W, H, y-clamp quirk, max_window, window_jump, padded arrays,
+# band counts, inf and NaN in vx): the main paths' sensors, sensors that
+# are not multiples of the pool's tiles (their rows chosen at launch: 26
+# at 320 x 320, 8 on small sensors), the quirk with W > H and W < H, a
+# jump at the largest carried (16), past it (17) and past the tile's rows
+# (40: no cell carried from one scale to the next), one scale and 21,
+# padded arrays, bands of 1, 2 and 4 shards and bands of one row
+APERTURE_CASES = {
+    "320x320": (320, 320, False, 50, 5, None, (), False),
+    "260x346 quirk": (260, 346, True, 50, 5, None, (), False),
+    "37x53": (37, 53, False, 50, 5, None, (), False),
+    "quirk W>H": (60, 41, True, 50, 5, None, (), False),
+    "quirk W<H": (41, 60, True, 50, 5, None, (), False),
+    "jump 16": (320, 320, False, 64, 16, None, (), False),
+    "jump 17": (320, 320, True, 68, 17, None, (2,), False),
+    "jump 40": (100, 130, True, 80, 40, None, (), False),
+    "max_window 0": (37, 53, False, 0, 5, None, (), False),
+    "max_window 100": (260, 346, False, 100, 5, None, (2,), False),
+    "padded": (60, 44, True, 50, 5, (64, 48), (), False),
+    "bands 1, 2, 4": (320, 320, False, 50, 5, None, (1, 2, 4), False),
+    "bands of one row": (8, 40, True, 20, 3, None, (8,), False),
+    "inf and NaN in vx": (320, 320, False, 50, 5, None, (4,), True),
+}
+
+
+def _bits_equal(g, w):
+    """Bit for bit, NaN payloads included (f32 viewed as i32)."""
+    if g.dtype == torch.float32:
+        return torch.equal(g.view(torch.int32), w.view(torch.int32))
+    return torch.equal(g, w)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("geom, quirk", [((320, 320), False),
-                                         ((260, 346), True)])
-def test_cuda_aperture_kernel_matches_plain(cuda, geom, quirk):
-    W, H = geom
-    cfg = TConfig(width=W, height=H, replicate_y_clamp_quirk=quirk)
-    ins = [torch.from_numpy(a).to(cuda) for a in _flow_fields(W, H, seed=3)]
+@pytest.mark.parametrize("case", list(APERTURE_CASES))
+def test_cuda_aperture_kernel_matches_plain(cuda, case):
+    """The pool bit for bit against dense_aperture: the whole sensor, and
+    each band (sliced from the whole float64 integral, 0 above the
+    sensor, its total row below) against the plain band mode and the
+    whole sensor's rows."""
+    import dataclasses
+
+    W, H, quirk, mw, jump, pad, bands, special = APERTURE_CASES[case]
+    cfg = TConfig(width=W, height=H, replicate_y_clamp_quirk=quirk,
+                  max_window=mw, window_jump=jump)
+    if pad:
+        cfg = dataclasses.replace(cfg, padded_width=pad[0],
+                                  padded_height=pad[1])
+    Wa, Ha = cfg.array_width, cfg.array_height
+    fields = _flow_fields(Wa, Ha, seed=3)
+    if special:
+        rng = np.random.default_rng(4)
+        fields[1][rng.random((Wa, Ha)) < 0.01] = np.inf
+        fields[1][rng.random((Wa, Ha)) < 0.01] = np.nan
+    ins = [torch.from_numpy(a).to(cuda) for a in fields]
     tk.reset_launches()
     got = tk.aperture(*ins, cfg)
     assert tk.LAUNCHES["aperture"] == 1 and tk.LAUNCHES["integral"] == 1
     want = tdf.dense_aperture(*ins, cfg)
     for name, g, w in zip(["tvx", "tvy", "scale"], got, want):
-        assert torch.equal(g, w), name
+        assert _bits_equal(g, w), name
+    A = cfg.max_window + 1
+    integ = tdf.build_integral(*ins)
+    full = torch.cat([integ.new_zeros((4, A, integ.shape[2])), integ,
+                      integ[:, -1:].expand(-1, A, -1)], 1)
+    for n in bands:
+        rows = Wa // n
+        for i in range(n):
+            end = Wa if i == n - 1 else rows * (i + 1)
+            band = full[:, rows * i:end + 2 * A + 1].contiguous()
+            core = [a[rows * i:end] for a in ins]
+            tk.reset_launches()
+            g_band = tk.aperture(*core, cfg, halo=A, integ=band)
+            assert tk.LAUNCHES["aperture"] == 1
+            w_band = tdf.dense_aperture(*core, cfg, halo=A, integ=band)
+            for name, g, w, o in zip(["tvx", "tvy", "scale"], g_band,
+                                     w_band, got):
+                assert _bits_equal(g, w), (n, i, name)
+                assert _bits_equal(g, o[rows * i:end]), (n, i, name)
 
 
 def _band(arr, n, i, h):
