@@ -42,6 +42,15 @@ Phases, each printed with its result and seconds:
    below). Each bitwise against its plain halo mode on the card and
    against the rows of the whole-sensor kernel's output, with the same
    times for one interior 80-row band and for the one 320-row band;
+3b. the kernels' tile modes (the 2-D tiles of the spatial engine,
+   farms_tpu_torch/parallel/tiling.py) on the (2, 2) and (4, 2) tiles of
+   320 x 320 and the (1, 4) tiles of 260 x 346 padded to 348 columns:
+   local flow at k = 3, 5 and 7 in both fold modes on each tile plus its
+   R exchanged rows and columns, the pool on each tile's band of the
+   whole float64 integral (pre-clamped in y), with and without the
+   y-clamp quirk; each bitwise against its plain tile mode on the card
+   and the whole-sensor kernel's cells, its device time on one tile of
+   each grid against its bound;
 4. chunk_size=1 on the card against the float64 NumPy oracle
    (farms_tpu_torch/pipeline/oracle.py) on a translating-bar stream, with
    tests/test_golden.py's asserts: the dense engine, the per-event engine
@@ -56,28 +65,36 @@ Phases, each printed with its result and seconds:
    launch counts over that run (every count is set to 0 just before it)
    and the same valid flags and scale ids as the same CLI run on the CPU
    (plain versions) on every event;
-6. the halo, dp and multihost engines through the CLI at one rank
-   (`--engine halo|dp|multihost --devices 1`: every halo mode of every
-   kernel; the single engine's micro_step on one rank's event shard) at
-   both presets on the same stream: their launch counts, and output files
-   equal byte for byte to the single engine's card run;
+6. the halo, spatial, dp and multihost engines through the CLI at one
+   rank (`--engine halo|spatial|dp|multihost --devices 1`: every halo and
+   tile mode of every kernel; the single engine's micro_step on one
+   rank's event shard) at both presets on the same stream: their launch
+   counts, and output files equal byte for byte to the single engine's
+   card run;
 7. the single engine on a padded array geometry (320 x 320 in 324 x 328
    arrays) at the benchmark preset on the first 262,144 events: launch
    counts, every column bitwise equal to the unpadded engine's, and the
-   CPU's valid flags and scale ids on every event;
+   CPU's valid flags and scale ids on every event; 7b. the spatial
+   engine at one rank on the benchmark harness's config 5 (1280 x 720,
+   262,144 events): the single engine's launch counts, each in tile
+   mode, and every column bitwise equal to it;
 8. with two or more cards, over NCCL with each rank on its own card, at
    the benchmark preset against the single engine's run on cuda:0:
    `--engine dp --devices 2` (and 4) byte for byte, `--engine halo
-   --devices 2` (and 4) byte for byte on every line but those whose scale
-   id differs at a float64 tie of the per-scale mean lengths
+   --devices 2` (and 4) and `--engine spatial --devices 2` (and 4) byte
+   for byte on every line but those whose scale id differs at a float64
+   tie of the per-scale mean lengths
    (farms_tpu_torch/pipeline/ties.py on the aperture inputs of the single
    engine's run); with four cards a (2, 2) multihost world launched the
    --multihost way (four processes of this script with a launcher's
    environment, two "hosts" of two cards) whose CLI file and
    write_flow_distributed file (the output all-gather made to raise) are
-   held as halo's; then [rates] of the single engine and of dp and
-   multihost at 2 and 4 ranks, and the benchmark harness's config 5
-   (the halo engine's process_resident over every card). With
+   held as halo's, and the spatial engine's (2, 2) grid through the API
+   at 320 x 320 and at config 5's 1280 x 720, each held as halo's (the
+   tie count printed); then [rates] of the single engine and of dp,
+   multihost and spatial (x tiles; and (2, 2)) at 2 and 4 ranks, and the
+   benchmark harness's config 5 (the halo engine's process_resident over
+   every card). With
    one card it prints why it did not run (`--nccl-only` runs this phase
    alone, after the build);
 9. `--backend perevent --preset benchmark` through the CLI on the same
@@ -90,8 +107,8 @@ Phases, each printed with its result and seconds:
    scale id;
 11. rates: FlowEngine.process on the card, per-event against dense, at
    chunks 2048 and 131072 on the stream, chunk 256 on its first 131,072
-   events and chunk 1 on its first 1,024; and the single, dp and
-   multihost engines at one rank at both presets: events/s and
+   events and chunk 1 on its first 1,024; and the single, dp, multihost
+   and spatial engines at one rank at both presets: events/s and
    device-busy ms per 1M events (torch.profiler), each line with the
    card's nvidia-smi name and power limit. No bound;
 12. native I/O: the CLI paths of 5 parsed, packed and wrote through the
@@ -118,7 +135,8 @@ the one before it a JSON summary of the kernels, with each kernel's bound
 over 67 TFLOP/s in f32 and 34 TFLOP/s in f64, the H100 SXM's data-sheet
 peaks) and its share (bound over device time) for its whole-sensor case,
 (`halo_*`) for one 80-row band and (`halo1_*`) for the one band of 320
-rows; the aperture entry adds the pool's own bound (`pool_bound_ms`: the
+rows, and (`tile_*`) for one 160 x 160 tile of (2, 2); the aperture
+entry adds the pool's own bound (`pool_bound_ms`: the
 float64 integral read from device memory, not built on the chip) and its
 share of the pool's device time (`pool_share`);
 the last line is {"ok": true, "device": {...}}. Any failure raises and
@@ -167,6 +185,10 @@ KERNEL_SOURCES = {"local_flow": ("local_flow.cu", 434),
                   "aperture": ("aperture.cu", 640),
                   "integral": ("aperture.cu", 733)}
 BAND_COUNTS = (1, 2, 4)     # row shards of the halo-mode kernel checks
+# (W, H, grids) of the tile-mode kernel checks: the sensor in (2, 2) and
+# (4, 2) tiles, and 260 x 346 (where the quirk moves the pool's y clamp)
+# in (1, 4)
+TILE_GRIDS = ((SENSOR, SENSOR, ((2, 2), (4, 2))), (260, 346, ((1, 4),)))
 # NVIDIA H100 SXM data-sheet peaks: HBM bytes/s, f32 and f64 FLOP/s
 # outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -255,32 +277,34 @@ def _bound(n_bytes: float, f32_ops: float, f64_ops: float = 0.0) -> dict:
 
 
 def local_flow_bound(k: int, n_chain: int, band_rows: int, rows: int,
-                     Ha: int) -> dict:
+                     Ha: int, band_cols: int | None = None) -> dict:
     """Bound of one local-flow call: it reads the chain and the center
-    (int32 [band_rows, Ha] each) once and writes five 4-byte [rows, Ha]
-    maps. Its f32 operations per pixel: for each of the 9 candidates, k^2
+    (int32 [band_rows, band_cols] each; band_cols = Ha but for a tile)
+    once and writes five 4-byte [rows, Ha] maps. Its f32 operations per pixel: for each of the 9 candidates, k^2
     cells of (d, sum), a division and a compare; k^2 cells of the winner's
     sums (d, yv, 5 products, 8 sums); 46 for the adjugate solve; k^2 cells
     of the inlier test (d, yv, 2 products, 2 sums, abs, compare). The
     chain fold's compares are integer and not counted."""
     per_pixel = 9 * (2 * k * k + 2) + 15 * k * k + 46 + 8 * k * k
-    return _bound((n_chain + 1) * band_rows * Ha * 4 + 5 * rows * Ha * 4,
-                  per_pixel * rows * Ha)
+    return _bound((n_chain + 1) * band_rows * (band_cols or Ha) * 4
+                  + 5 * rows * Ha * 4, per_pixel * rows * Ha)
 
 
 def aperture_bound(n_scales: int, rows: int, Ha: int,
-                   integ_rows: int = 0) -> dict:
+                   integ_rows: int = 0, integ_cols: int = 0) -> dict:
     """Bound of one aperture call. Whole sensor: it reads flow_len, vx and
     vy and writes tvx, tvy and scale (4-byte [rows, Ha] maps each), and
     builds the float64 integral on the way (f32: 3 products and a compare
     per pixel; f64: 2 sums for each of 4 fields). Band mode: it reads the
-    float64 band [4, integ_rows, Ha + 1] and flow_vx/vy. Per pixel and
-    scale: 4 fields x 3 f64 corner sums; f32: a compare, 3 divisions and a
-    compare; one more compare per pixel."""
+    float64 band [4, integ_rows, integ_cols] (integ_cols = Ha + 1 but for
+    a tile's band) and flow_vx/vy. Per pixel and scale: 4 fields x 3 f64
+    corner sums; f32: a compare, 3 divisions and a compare; one more
+    compare per pixel."""
     px = rows * Ha
     if integ_rows:
-        return _bound(4 * integ_rows * (Ha + 1) * 8 + 5 * px * 4,
-                      (5 * n_scales + 1) * px, 12 * n_scales * px)
+        return _bound(4 * integ_rows * (integ_cols or Ha + 1) * 8
+                      + 5 * px * 4, (5 * n_scales + 1) * px,
+                      12 * n_scales * px)
     return _bound(6 * px * 4, (4 + 5 * n_scales + 1) * px,
                   (8 + 12 * n_scales) * px)
 
@@ -717,6 +741,188 @@ def check_halo_kernels(dev):
     return results
 
 
+def _tile_cut(arr, tile, h):
+    """Tile (row0, rows, col0, cols) of a [..., W, H] array with h cells
+    more on each side in both axes, zero past the sensor edge (what the
+    spatial engine's row and column exchanges give each rank)."""
+    r0, rows, c0, cols = tile
+    pad = [(0, 0)] * (arr.ndim - 2) + [(h, h), (h, h)]
+    return np.ascontiguousarray(
+        np.pad(arr, pad)[..., r0:r0 + rows + 2 * h, c0:c0 + cols + 2 * h])
+
+
+def _tiles(W, H, shape):
+    """(row0, rows, col0, cols) of each tile of a (tx, ty) grid, in rank
+    order (tile (r % tx, r // tx))."""
+    tx, ty = shape
+    rows, cols = W // tx, H // ty
+    return [((r % tx) * rows, rows, (r // tx) * cols, cols)
+            for r in range(tx * ty)]
+
+
+def _tile_geoms(make_cfg, make_inputs, whole_of):
+    """For each sensor and grid of TILE_GRIDS: (cfg padded to the grid,
+    shape, its tiles, the inputs padded to the array geometry (pad cells
+    never written), whole_of(inputs, cfg): the whole-sensor outputs)."""
+    geoms = []
+    for W, H, shapes in TILE_GRIDS:
+        for shape in shapes:
+            cfg = make_cfg(W, H).padded_to(*shape)
+            Wa, Ha = cfg.array_width, cfg.array_height
+            ins = [np.ascontiguousarray(np.pad(
+                a, [(0, 0)] * (a.ndim - 2) + [(0, Wa - W), (0, Ha - H)]))
+                for a in make_inputs(W, H)]
+            geoms.append((cfg, shape, _tiles(Wa, Ha, shape), ins,
+                          whole_of(ins, cfg)))
+    return geoms
+
+
+def check_tile_kernels(dev):
+    """Phase 3b: the kernels' tile modes (the 2-D tiles of the spatial
+    engine, farms_tpu_torch/parallel/tiling.py) on the tiles of TILE_GRIDS:
+    the 320 x 320 sensor in (2, 2) and (4, 2) tiles of 160 x 160 and 80 x
+    160, and 260 x 346 (padded to 260 x 348, as the engine pads it) in
+    (1, 4) tiles of 260 x 87. Local flow at k = 3, 5 and 7 in default mode
+    (chains of 1 and, at k = 5, 8 surfaces) and correction mode (chains
+    of 3), each tile with its R exchanged rows and columns (cut from the
+    zero-padded surfaces); the pool on each tile's band of the whole
+    float64 integral, pre-clamped in y (dense_flow.tile_band), with and
+    without the y-clamp quirk (at 260 x 346 it clamps y at 260, inside
+    the last tile's band). Each tile's kernel output must equal the plain
+    tile mode on the card and the whole-sensor kernel's cells bitwise.
+    Each case is timed on one tile of each grid (device ms, median of 30,
+    against its bound). Returns, for each kernel, its main case's times,
+    bound and share on a (2, 2) tile at 320 x 320, and the largest max abs
+    error."""
+    import torch
+    from farms_tpu_torch.config import FlowConfig
+    from farms_tpu_torch.ops import dense_flow as plain
+    from farms_tpu_torch.ops import kernels
+
+    errs = {name: 0.0 for name in kernels.LAUNCHES}
+    results = {}
+
+    def tile_case(label, name, geoms, run, bound, names):
+        """run(fn, ins, cfg, tile) computes a tile with the kernel (fn
+        None) or its plain version. Returns the (2, 2) tile's times."""
+        t0 = time.perf_counter()
+        said, main = [], None
+        for cfg, shape, tiles, ins, whole in geoms:
+            for tile in tiles:
+                r0, rows, c0, cols = tile
+                kernels.reset_launches()
+                got = run(None, ins, cfg, tile)
+                if kernels.LAUNCHES[name] != 1 or sum(
+                        kernels.LAUNCHES.values()) != 1:
+                    raise AssertionError(f"{label} {shape} {tile}: "
+                                         f"launches {kernels.LAUNCHES}")
+                want = run(plain, ins, cfg, tile)
+                torch.cuda.synchronize()
+                what = f"{label} {cfg.width}x{cfg.height} {shape} {tile}"
+                errs[name] = max(errs[name], _compare(what, got, want,
+                                                      names))
+                _compare(f"{what} vs whole-sensor cells", got,
+                         [w[r0:r0 + rows, c0:c0 + cols].contiguous()
+                          for w in whole], names)
+            tile = tiles[min(1, len(tiles) - 1)]     # an interior tile
+            device_ms = _device_ms(lambda: run(None, ins, cfg, tile))
+            entry = dict(device_ms=device_ms, **bound(cfg, tile))
+            entry["share"] = _share(entry)
+            if (cfg.width, shape) == (SENSOR, (2, 2)):
+                entry["ms"] = _median_ms(lambda: run(None, ins, cfg, tile))
+                entry["plain_ms"] = _median_ms(lambda: run(plain, ins, cfg,
+                                                           tile))
+                main = entry
+            said.append(f"{cfg.width}x{cfg.height} in {shape}: "
+                        f"{len(tiles)} tiles of {tile[1]}x{tile[3]}, device "
+                        f"{_fmt_ms(device_ms)}, bound "
+                        f"{entry['bound_ms']:.6f} ms ({entry['bound_by']}), "
+                        f"share {entry['share']}")
+        _phase(f"tile kernel {label}", t0,
+               f"every tile equal to the plain tile mode and to the "
+               f"whole-sensor cells; max_abs_err {errs[name]}; "
+               f"{'; '.join(said)}; the (2, 2) tile at {SENSOR}: kernel "
+               f"{main['ms']:.4f} ms, plain {main['plain_ms']:.4f} ms")
+        return main
+
+    def put(arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    # a tile's kernel inputs on the card, built once outside the timed
+    # calls; keyed by its case's input array, so cleared with each case
+    cut = {}
+
+    def tile_inputs(key, build):
+        if key not in cut:
+            cut[key] = build()
+        return cut[key]
+
+    for k, n, fold in ((3, 1, True), (5, 8, True), (7, 1, True),
+                       (3, 3, False), (5, 3, False), (7, 3, False)):
+        def inputs(W, H, k=k, n=n, fold=fold):
+            surfs, t_post, rank2 = _stamp_chain(W, H, 300 + k + n, n)
+            return surfs, t_post if fold else rank2
+
+        def run(mod, ins, cfg, tile, fold=fold):
+            R = cfg.support_radius
+            fn = plain.local_flow_core if mod else kernels.local_flow
+            bands = tile_inputs((id(ins[0]), tile), lambda: put(
+                _tile_cut(a, tile, R) for a in ins))
+            return fn(*bands, cfg, fold_center=fold, halo=R,
+                      row_offset=tile[0], col_halo=R, col_offset=tile[2])
+
+        def bound(cfg, tile, n=n):
+            R = cfg.support_radius
+            return local_flow_bound(cfg.filter_size, n, tile[1] + 2 * R,
+                                    tile[1], tile[3], tile[3] + 2 * R)
+
+        cut.clear()
+        geoms = _tile_geoms(
+            lambda W, H, k=k: FlowConfig(width=W, height=H, filter_size=k),
+            inputs, lambda ins, cfg, fold=fold: kernels.local_flow(
+                *put(ins), cfg, fold_center=fold))
+        name = "local_flow" if k in (3, 5) else "local_flow_general"
+        entry = tile_case(f"{name} k={k} chain={n} fold_center={fold}", name,
+                          geoms, run, bound, LOCAL_NAMES)
+        if n == 1 and fold:
+            results[name] = entry
+
+    for quirk in (False, True):
+        def run_ap(mod, ins, cfg, tile):
+            A = cfg.max_window + 1
+
+            def build():
+                r0, rows, c0, cols = tile
+                dins = put(ins)
+                band = plain.tile_band(plain.build_integral(*dins), *tile,
+                                       A, plain.aperture_y_clip(cfg))
+                return [a[r0:r0 + rows, c0:c0 + cols].contiguous()
+                        for a in dins], band
+
+            core, band = tile_inputs((id(ins[0]), tile), build)
+            fn = plain.dense_aperture if mod else kernels.aperture
+            return fn(*core, cfg, halo=A, col_halo=A, integ=band)
+
+        def ap_bound(cfg, tile):
+            A = cfg.max_window + 1
+            return aperture_bound(cfg.num_scales, tile[1], tile[3],
+                                  tile[1] + 2 * A + 1, tile[3] + 2 * A + 1)
+
+        cut.clear()
+        geoms = _tile_geoms(
+            lambda W, H, quirk=quirk: FlowConfig(
+                width=W, height=H, replicate_y_clamp_quirk=quirk),
+            lambda W, H: _flow_fields(W, H, 8 + W),
+            lambda ins, cfg: kernels.aperture(*put(ins), cfg))
+        entry = tile_case(f"aperture tile quirk={quirk}", "aperture", geoms,
+                          run_ap, ap_bound, APERTURE_NAMES)
+        if not quirk:
+            results["aperture"] = entry
+    for name, r in results.items():
+        r["max_abs_err"] = errs[name]
+    return results
+
+
 def _assert_oracle(label, ref, got):
     """tests/test_golden.py:44-60's asserts: valid flags, scale ids and t
     equal to the float64 oracle's, r_local and r_true within 1e-4
@@ -911,18 +1117,20 @@ def check_main_paths(base, work):
 
 def check_engine_paths(base, card_files):
     """Phase 6: `--engine halo --devices 1` (every halo mode of
-    every kernel on one card), then `--engine dp --devices 1` and
-    `--engine multihost --devices 1` (the single engine's micro_step on
-    the event shard of one rank), through the CLI at both presets on the
-    card. Each one's launch counts, and its output file equal byte for
-    byte to the single engine's card run (at one rank the bands hold the
-    whole sensor's values and the band integral is the whole float64
-    integral). Returns {label: (launches, rate)}."""
+    every kernel on one card), `--engine spatial --devices 1` (every tile
+    mode: both column halos zero-filled), then `--engine dp --devices 1`
+    and `--engine multihost --devices 1` (the single engine's micro_step
+    on the event shard of one rank), through the CLI at both presets on
+    the card. Each one's launch counts, and its output file equal byte for
+    byte to the single engine's card run (at one rank the bands and the
+    tile hold the whole sensor's values and the band and tile integrals
+    are the whole float64 integral). Returns {label: (launches,
+    rate)}."""
     from farms_tpu_torch.events.io import read_flow_txt
 
     steps = STREAM_EVENTS // 131072
     results = {}
-    for engine in ("halo", "dp", "multihost"):
+    for engine in ("halo", "spatial", "dp", "multihost"):
         for preset, want in _preset_launches(steps).items():
             label = f"{engine} {preset}"
             argv = _stream_argv(base, preset) + ["--engine", engine,
@@ -987,6 +1195,38 @@ def check_padded(base):
            f"column bitwise equal to the unpadded engine on the card; valid "
            f"flags ({int(vg.sum())} valid) and scale ids equal to the cpu on "
            f"every event; {len(ev) / wall:.1f} events/sec")
+    return launches, len(ev) / wall
+
+
+def check_spatial_wide():
+    """Phase 7b: the spatial engine at one rank (one tile, both halos
+    zero-filled) in-process on harness config 5's 1280 x 720 sensor and
+    stream (farms_tpu_torch/bench/harness.py `config5_inputs`): the same
+    launches as the single engine's run, each in tile mode, and every
+    column bit for bit equal. Returns (launches, events/s of the spatial
+    run)."""
+    from farms_tpu_torch.bench import harness
+    from farms_tpu_torch.parallel import SpatialFlowEngine
+    from farms_tpu_torch.pipeline.engine import FlowEngine
+
+    t0 = time.perf_counter()
+    cfg, ev = harness.config5_inputs()
+    ref = FlowEngine(cfg, device="cuda").process(ev)
+    eng = SpatialFlowEngine(cfg, device="cuda")
+    eng.process(ev[:2 * cfg.chunk_size])              # warm-up
+    eng.reset()
+    steps = -(-len(ev) // cfg.chunk_size)
+    want = {"local_flow": steps * cfg.sub_phases,
+            "aperture": steps * cfg.sub_phases,
+            "integral": steps * cfg.sub_phases}
+    (got, wall), launches = _counted(
+        "spatial 1280x720", lambda: _timed(lambda: eng.process(ev)), want)
+    _same_columns("spatial 1280x720 (against the single engine)", got, ref)
+    _phase("spatial 1280x720", t0,
+           f"harness config 5's stream ({len(ev)} events, chunk "
+           f"{cfg.chunk_size}) on one tile: launches {launches}, every "
+           f"pass a tile-mode launch; every column bitwise equal to the "
+           f"single engine; {len(ev) / wall:.1f} events/s")
     return launches, len(ev) / wall
 
 
@@ -1430,17 +1670,46 @@ def _engine_rate(eng, ev):
 
 
 def _make_engine(kind, cfg):
-    """"single", "dp" (every rank), or a (tx, ev) multihost grid."""
+    """"single", "dp" (every rank), "spatial" (x tiles over every rank),
+    ("spatial", (tx, ty)) tiles, or a (tx, ev) multihost grid."""
     from farms_tpu_torch.parallel import (MultiHostFlowEngine,
-                                          ShardedFlowEngine, mesh)
+                                          ShardedFlowEngine,
+                                          SpatialFlowEngine, mesh)
     from farms_tpu_torch.pipeline.engine import FlowEngine
 
     if kind == "single":
         return FlowEngine(cfg, device="cuda")
     if kind == "dp":
         return ShardedFlowEngine(cfg, device="cuda")
+    if kind == "spatial":
+        return SpatialFlowEngine(cfg, device="cuda")
+    if kind[0] == "spatial":
+        return SpatialFlowEngine(cfg, mesh_shape=kind[1], device="cuda")
     return MultiHostFlowEngine(cfg, mesh=mesh.make_global_mesh(*kind),
                                device="cuda")
+
+
+def _kind_label(kind) -> str:
+    if isinstance(kind, str):
+        return kind
+    if kind[0] == "spatial":
+        return f"spatial {kind[1][0]}x{kind[1][1]}"
+    return f"multihost {kind[0]}x{kind[1]}"
+
+
+def spatial_rank(shape, base=None):
+    """One rank of a (tx, ty) grid of the spatial engine (parallel/mesh.py
+    `run` entry point) on the stream at `base` at the benchmark preset,
+    or with base None on harness config 5's 1280 x 720 stream. Returns
+    rank 0's FlowOutput."""
+    from farms_tpu_torch.bench import harness
+    from farms_tpu_torch.events.io import load_events_txt
+
+    if base is None:
+        cfg, ev = harness.config5_inputs()
+    else:
+        cfg, ev = _preset_config(base), load_events_txt(base)
+    return _make_engine(("spatial", shape), cfg).process(ev)
 
 
 def rank_rate(kind, base, preset):
@@ -1460,8 +1729,8 @@ def _rate_line(label, preset, n, rate, per_m, wall, smi):
 
 
 def check_engine_rates(base, smi):
-    """The single, dp and multihost engines at one rank, in-process, at
-    both presets: events/s of a warmed process() over the stream and
+    """The single, dp, multihost and spatial engines at one rank,
+    in-process, at both presets: events/s of a warmed process() over the stream and
     device-busy ms per 1M events (torch.profiler). Returns {label:
     events/s}."""
     from farms_tpu_torch.events.io import load_events_txt
@@ -1470,7 +1739,7 @@ def check_engine_rates(base, smi):
     rates = {}
     for preset in ("benchmark", "fidelity"):
         cfg = _preset_config(base, preset)
-        for kind in ("single", "dp", (1, 1)):
+        for kind in ("single", "dp", (1, 1), "spatial"):
             t0 = time.perf_counter()
             label = kind if isinstance(kind, str) else "multihost"
             rate, per_m, wall = _engine_rate(_make_engine(kind, cfg), ev)
@@ -1568,7 +1837,7 @@ def check_nccl(base, work, smi):
     for n in (2, 4):
         if n > cards:
             break
-        for engine in ("halo", "dp"):
+        for engine in ("halo", "spatial", "dp"):
             t0 = time.perf_counter()
             rate = _cli_process(argv + ["--engine", engine, "--devices",
                                         str(n)])
@@ -1579,6 +1848,14 @@ def check_nccl(base, work, smi):
                    f"{said}; [Benchmark Main] rate {rate:.1f} events/sec")
             rates[f"{engine} benchmark devices={n}"] = rate
     if cards >= 4:
+        t0 = time.perf_counter()
+        got = mesh.run(spatial_rank, 4, "cuda", (2, 2), base)
+        said = _compare_with_single(
+            "nccl spatial (2, 2)",
+            write_flow_txt(got, os.path.join(work, "spatial22")), ref,
+            ref_lines, passes, cfg)
+        _phase("nccl spatial (2, 2)", t0, f"SpatialFlowEngine(mesh_shape=(2, "
+               f"2)) on 4 cards, 160 x 160 tiles: {said}")
         t0 = time.perf_counter()
         dist_base = os.path.join(work, "distributed")
         said = _multihost_world(base, dist_base)
@@ -1626,6 +1903,16 @@ def check_nccl(base, work, smi):
         write_flow_txt(got, os.path.join(work, "config5_halo")), single5,
         ref5_lines, passes, cfg5)
     launches = {k: sum(c[k] for c in counts) for k in want}
+    if cards >= 4:
+        t5 = time.perf_counter()
+        got = mesh.run(spatial_rank, 4, "cuda", (2, 2))
+        said5 = _compare_with_single(
+            "spatial (2, 2) 1280x720",
+            write_flow_txt(got, os.path.join(work, "config5_spatial")),
+            single5, ref5_lines, passes, cfg5)
+        _phase("nccl spatial (2, 2) 1280x720", t5,
+               f"SpatialFlowEngine(mesh_shape=(2, 2)) on 4 cards, 640 x 360 "
+               f"tiles, harness config 5's stream: {said5}")
     rates["harness config 5"] = res.events_per_sec
     paths["harness config 5"] = (launches, res.events_per_sec)
     _phase("harness config 5", t0, f"the halo engine's process_resident "
@@ -1640,9 +1927,12 @@ def check_nccl(base, work, smi):
     for n in (2, 4):
         if n > cards:
             break
-        for kind in ("dp", (2, n // 2)):
+        kinds = ["dp", (2, n // 2), ("spatial", (n, 1))]
+        if n == 4:
+            kinds.append(("spatial", (2, 2)))
+        for kind in kinds:
             t0 = time.perf_counter()
-            label = "dp" if kind == "dp" else f"multihost {kind[0]}x{kind[1]}"
+            label = _kind_label(kind)
             rate, per_m, wall = mesh.run(rank_rate, n, "cuda", kind, base,
                                          "benchmark")
             _rate_line(label, "benchmark", n, rate, per_m, wall, smi)
@@ -1855,6 +2145,7 @@ def main() -> int:
     kind, smi = _start()
     timings = check_kernels(dev)
     halo_timings = check_halo_kernels(dev)
+    tile_timings = check_tile_kernels(dev)
     check_oracle(dev)
     with tempfile.TemporaryDirectory() as work:
         base = write_stream(work)
@@ -1863,6 +2154,7 @@ def main() -> int:
         cli_calls = dict(nativeio.CALLS)
         paths.update(check_engine_paths(base, card_files))
         paths["padded benchmark"] = check_padded(base)
+        paths["spatial 1280x720"] = check_spatial_wide()
         check_native(base, work, card_files, cli_calls)
         paths.update(check_stream(base, work, card_files))
         paths["sparse benchmark"] = check_sparse(base, card_files, smi)
@@ -1881,6 +2173,8 @@ def main() -> int:
                    for label, (counts, _) in paths.items()}
         halo = {f"halo{k}" if k.startswith("1_") else f"halo_{k}": v
                 for k, v in halo_timings.get(name, {}).items()}
+        halo.update({f"tile_{k}": v
+                     for k, v in tile_timings.get(name, {}).items()})
         entries.append(dict(
             name=name, route="cuda",
             source=f"farms_tpu_torch/csrc/{src}",
@@ -1890,7 +2184,7 @@ def main() -> int:
             **timings[name], **halo))
     print(f"[rates] [Benchmark Main] events/sec by path: {rates}")
     print(f"[rates] process() events/sec, per-event and dense, and the "
-          f"single, dp and multihost engines: {path_rates}")
+          f"single, dp, multihost and spatial engines: {path_rates}")
     print(json.dumps({"kernels": entries}))
     print(_nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -32,6 +32,9 @@ one rank on the CPU; one rank runs in this process.
 - `--engine halo`: row bands of every surface (parallel/halo.py).
 - `--engine multihost`: both over a (tx, ev) grid of ranks
   (parallel/multihost.py); the N spawned ranks are tx = N, ev = 1.
+- `--engine spatial`: tiles of every surface with explicit halos
+  (parallel/tiling.py); the N ranks are N x tiles, as in farms_tpu (2-D
+  (tx, ty) tiles through the API: SpatialFlowEngine(mesh_shape=)).
 - `--multihost`: this process is one rank of a world that a launcher
   started (`torchrun` and the like: RANK, WORLD_SIZE, LOCAL_RANK,
   LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT), joined before any device
@@ -42,8 +45,7 @@ one rank on the CPU; one rank runs in this process.
 Every rank reads the stream; rank 0 prints and writes the output.
 `--wire sparse` compacts the output on the device to the lanes that carry
 flow; the sharded engines refuse it with farms_tpu's ValueError. Refused
-with NotImplementedError: `--engine spatial` (not ported, GSPMD tiling has
-no torch counterpart) and `--SERIAL 1` on more than one rank (serial mode
+with NotImplementedError: `--SERIAL 1` on more than one rank (serial mode
 has no multi-rank form).
 """
 from __future__ import annotations
@@ -60,7 +62,8 @@ from farms_tpu_torch.config import FlowConfig
 from farms_tpu_torch.events.io import load_events_txt, write_flow_txt
 from farms_tpu_torch.ops import _build
 from farms_tpu_torch.parallel import (HaloFlowEngine, MultiHostFlowEngine,
-                                      ShardedFlowEngine, mesh)
+                                      ShardedFlowEngine, SpatialFlowEngine,
+                                      mesh)
 from farms_tpu_torch.pipeline.engine import FlowEngine
 from farms_tpu_torch.pipeline.serial import SerialFlowEngine
 
@@ -155,15 +158,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--engine", type=str, default="single",
                    choices=["single", "dp", "spatial", "halo", "multihost"],
                    help="sharding strategy: single device, event-batch data "
-                        "parallel (dp), row bands with halo exchanges "
-                        "(halo), or both over a (tx, ev) grid of ranks "
-                        "(multihost; tx = --devices, ev = 1 when this "
-                        "command spawns the ranks); spatial is not ported")
+                        "parallel (dp), x tiles of the sensor with halos "
+                        "in both axes (spatial), row bands with halo "
+                        "exchanges (halo), or both dp and halo over a (tx, "
+                        "ev) grid of ranks (multihost; tx = --devices, ev "
+                        "= 1 when this command spawns the ranks)")
     p.add_argument("--devices", type=int, default=0,
-                   help="ranks of the dp, halo and multihost engines, one "
-                        "card each on cuda (0 = every visible card on cuda, "
-                        "one rank on cpu; one rank runs in this process); "
-                        "with --engine single, >1 means --engine dp")
+                   help="ranks of the dp, spatial, halo and multihost "
+                        "engines, one card each on cuda (0 = every visible "
+                        "card on cuda, one rank on cpu; one rank runs in "
+                        "this process); with --engine single, >1 means "
+                        "--engine dp")
     p.add_argument("--backend", type=str, default="auto",
                    choices=["auto", "pallas", "dense", "perevent"],
                    help="compute formulation: auto/pallas/dense all run the "
@@ -245,11 +250,6 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             "--SERIAL 1 runs one event at a time on one device; it has no "
             "multi-rank form")
-    if args.engine == "spatial":
-        raise NotImplementedError(
-            "--engine spatial is not ported yet (ROADMAP Queue 1: 2-D "
-            "tiles with explicit halos in both axes; --engine halo shards "
-            "the rows explicitly)")
 
 
 def main(argv=None) -> int:
@@ -333,6 +333,8 @@ def _run(args) -> int:
         engine = SerialFlowEngine(cfg, device=args.device)
     elif args.engine == "halo":
         engine = HaloFlowEngine(cfg, device=args.device)
+    elif args.engine == "spatial":
+        engine = SpatialFlowEngine(cfg, device=args.device)
     elif args.engine == "multihost":
         engine = MultiHostFlowEngine(cfg, device=args.device)
     elif args.engine == "dp" or mesh.rank_and_size()[1] > 1:

@@ -75,6 +75,18 @@
 // the sensor and the sensor's total row below it, which realizes the
 // reference's x clamp; the clamp to the integral's extent below is that
 // clamp on a whole-sensor integral (halo 0) and never binds on a band.
+//
+// Tile mode (a 2-D tile of the port's spatial engine, parallel/tiling.py)
+// does the same in y: the band also holds col_halo >= max_window + 1
+// columns left and right of the tile's cols core columns (row length cols
+// + 2 * col_halo + 1), so core column c reads corner columns col_halo + c
+// + s + 1 and col_halo + c - s. The band is built pre-clamped in y
+// (assemble_integral_tile): 0 before the sensor, and past y_clip (the
+// reference's y clamp, the quirk's included) the values of column y_clip.
+// The y clamp is then the band's last column and, like the x clamp, never
+// binds on a tile's pixels, so the slabs address the band's columns with
+// a plain offset; whole-sensor and row-band launches (col_halo 0) run the
+// same code on the same addresses as before.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -130,7 +142,8 @@ __device__ __forceinline__ int wrap(int v, int p) {
 
 __global__ void __launch_bounds__(NT_MAX, 1)
 aperture_kernel(const double* __restrict__ integ, int integ_rows, int rows,
-                int halo, int Ha, int y_clip, int n_scales, int jump,
+                int halo, int cols, int col_halo, int y_clip, int n_scales,
+                int jump,
                 const float* __restrict__ flow_vx,
                 const float* __restrict__ flow_vy, float* __restrict__ tvx,
                 float* __restrict__ tvy, int32_t* __restrict__ scale_out) {
@@ -141,7 +154,7 @@ aperture_kernel(const double* __restrict__ integ, int integ_rows, int rows,
   const Slabs g = slabs_for(TX, jump);
   const int tr = threadIdx.y, tc = threadIdx.x, tid = tr * TY + tc;
   const int r0 = blockIdx.y * TX, c0 = blockIdx.x * TY;
-  const int Ly = Ha + 1;                  // integral row length
+  const int Ly = cols + 2 * col_halo + 1; // integral row length
   const int plane = integ_rows * Ly;      // one field (< 2^31, checked)
   const double* const I0 = integ;         // count
   const double* const I1 = integ + plane; // length
@@ -178,8 +191,8 @@ aperture_kernel(const double* __restrict__ integ, int integ_rows, int rows,
     const int s = si * jump;
     const int xh = min(max(halo + r0 + s + TX - a, 0), x_hi) * Ly;
     const int xl = min(max(halo + r0 - s + a, 0), x_hi) * Ly;
-    const int yh = min(max(c0 + s + TY - b, 0), y_clip);
-    const int yl = min(max(c0 - s + b, 0), y_clip);
+    const int yh = min(max(col_halo + c0 + s + TY - b, 0), y_clip);
+    const int yl = min(max(col_halo + c0 - s + b, 0), y_clip);
     const int sxh = wrap((TX - 1 - a) * row_b + c.xh, area_b);
     const int sxl = wrap(a * row_b + c.xl, area_b);
     const int syh = wrap((TY - 1 - b) * 16 + c.yh, row_b);
@@ -270,8 +283,8 @@ aperture_kernel(const double* __restrict__ integ, int integ_rows, int rows,
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
     const int r = r0 + tr + p * ry;
-    if (r >= rows || py >= Ha) continue;
-    const size_t o = (size_t)r * Ha + py;
+    if (r >= rows || py >= cols) continue;
+    const size_t o = (size_t)r * cols + py;
     if (!(best_ml[p] > 0.0f)) {               // the fallback
       tvx[o] = flow_vx[o];
       tvy[o] = flow_vy[o];
@@ -279,11 +292,11 @@ aperture_kernel(const double* __restrict__ integ, int integ_rows, int rows,
       continue;
     }
     // vx and vy at the winning scale's corners, as the plain version reads
-    const int s = best_si[p] * jump, px = halo + r;
+    const int s = best_si[p] * jump, px = halo + r, qy = col_halo + py;
     const int xh = min(max(px + s + 1, 0), x_hi) * Ly;
     const int xl = min(max(px - s, 0), x_hi) * Ly;
-    const int yh = min(max(py + s + 1, 0), y_clip);
-    const int yl = min(max(py - s, 0), y_clip);
+    const int yh = min(max(qy + s + 1, 0), y_clip);
+    const int yl = min(max(qy - s, 0), y_clip);
     const double* Ix = integ + 2 * (size_t)plane;
     const double* Iy = integ + 3 * (size_t)plane;
     const float bx = (float)(Ix[xh + yh] - Ix[xl + yh] - Ix[xh + yl] +
@@ -442,36 +455,40 @@ int pool_sms(cudaError_t& err) {
 
 }  // namespace
 
-// C entry point. integ: float64 [4, integ_rows, Ha + 1], the whole
-// integral (integ_rows = W + 1, halo 0) or a shard's band (integ_rows =
-// rows + 2 * halo + 1); flow_vx/flow_vy and the outputs: [rows, Ha]; all
-// contiguous on the current device. Returns the launch's cudaError_t
+// C entry point. integ: float64 [4, integ_rows, cols + 2 * col_halo + 1],
+// the whole integral (integ_rows = W + 1, halo = col_halo = 0, cols = the
+// array height), a shard's band (integ_rows = rows + 2 * halo + 1,
+// col_halo 0) or a tile's band (col_halo > 0 too, pre-clamped in y, with
+// y_clip its last column); flow_vx/flow_vy and the outputs: [rows, cols];
+// all contiguous on the current device. Returns the launch's cudaError_t
 // (cudaErrorInvalidValue for inconsistent geometry).
 extern "C" int farms_aperture(const void* integ, int integ_rows, int rows,
-                              int halo, int Ha, int y_clip, int n_scales,
-                              int jump, const void* flow_vx,
+                              int halo, int cols, int col_halo, int y_clip,
+                              int n_scales, int jump, const void* flow_vx,
                               const void* flow_vy, void* tvx, void* tvy,
                               void* scale, void* stream) {
-  if (rows < 1 || Ha < 1 || halo < 0 || jump < 0 ||
-      integ_rows != rows + 2 * halo + 1 ||
-      (long long)integ_rows * (Ha + 1) > 0x7fffffff)
+  const int Ly = cols + 2 * col_halo + 1;
+  if (rows < 1 || cols < 1 || halo < 0 || col_halo < 0 || jump < 0 ||
+      integ_rows != rows + 2 * halo + 1 || y_clip < 0 || y_clip >= Ly ||
+      (long long)integ_rows * Ly > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   cudaError_t e;
   const int n_sm = pool_sms(e);
   if (!n_sm) return (int)e;
-  const int tx = tile_rows(rows, Ha, n_sm);
+  const int tx = tile_rows(rows, cols, n_sm);
   const dim3 block(TY, tx / 2);
-  const dim3 grid((Ha + TY - 1) / TY, (rows + tx - 1) / tx);
+  const dim3 grid((cols + TY - 1) / TY, (rows + tx - 1) / tx);
   aperture_kernel<<<grid, block, slab_bytes(slabs_for(tx, jump)),
                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(integ), integ_rows, rows, halo, Ha, y_clip,
-      n_scales, jump, static_cast<const float*>(flow_vx),
+      static_cast<const double*>(integ), integ_rows, rows, halo, cols,
+      col_halo, y_clip, n_scales, jump, static_cast<const float*>(flow_vx),
       static_cast<const float*>(flow_vy), static_cast<float*>(tvx),
       static_cast<float*>(tvy), static_cast<int32_t*>(scale));
   return (int)cudaGetLastError();
 }
 
-// How the pool runs on rows x Ha pixels at a jump on the current device:
+// How the pool runs on rows x Ha pixels (a tile's core columns in tile
+// mode) at a jump on the current device:
 // its tile (tile_rows x tile_cols pixels, two a thread), each corner
 // kind's slab (slab_rows x slab_cols slots), the strip a later scale
 // copies (strip_rows whole rows and strip_cols columns of the others)

@@ -3,7 +3,8 @@
 // Replaces the two Pallas kernels behind local_flow_pallas
 // (farms_tpu/ops/pallas/kernels.py:341), in their default, their
 // correction (`t_center`, inc_center=False) and their halo (`halo`,
-// `row_offset`: a row shard of parallel/halo.py) modes:
+// `row_offset`: a row shard of parallel/halo.py) modes, and in the tile
+// mode of the port's spatial engine (a 2-D tile of parallel/tiling.py):
 // - `_local_flow_kernel_cached` (:434, k = 3 and 5) by the streamed
 //   kernels local_flow_streamed<1> and <2>, whose filter radius is a
 //   template constant;
@@ -75,16 +76,19 @@
 //   winner is solved. The kernel decides its own tile, slabs and shared
 //   memory (farms_local_flow_shape reports them).
 //
-// The halo mode changes only addressing, not the work or what bounds it:
-// the inputs are bands of `halo` >= R exchanged rows above and below the
-// shard's `rows` core rows, so staging reads band row halo + r, which the
-// tile's R-row halo keeps inside the band (the band already holds zeros
-// past the sensor edge, the values the whole-sensor zero fill gives);
-// coordinates and the window border checks use the global row
-// row_offset + r against the semantic sensor W x H, never the band or the
-// array; Ha, the array height, is the stride. On the same values a band's
-// outputs equal the whole-sensor kernel's rows bitwise. Without a halo the
-// band is the sensor: halo = row_offset = 0, rows = W, Ha = H.
+// The halo and tile modes change only addressing, not the work or what
+// bounds it: the inputs are bands of `halo` >= R exchanged rows above and
+// below the shard's `rows` core rows and, in tile mode, of `col_halo` >= R
+// exchanged columns left and right of its `cols` core columns, so staging
+// reads band row halo + r and band column col_halo + c, which the tile's
+// R-cell halo keeps inside the band (the band already holds zeros past the
+// sensor edge, the values the whole-sensor zero fill gives); coordinates
+// and the window border checks use the global row row_offset + r and
+// column col_offset + c against the semantic sensor W x H, never the band
+// or the array; band_cols is the stride. On the same values a band's or a
+// tile's outputs equal the whole-sensor kernel's cells bitwise. Without a
+// halo an axis is the array's: halo = row_offset = 0 and rows = W, or
+// col_halo = col_offset = 0 and cols = band_cols = the array height.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -120,20 +124,22 @@ struct Streamed {
 };
 
 // Start copying the tile plus its R-row, R-column halo of one surface
-// (a [band_rows, Ha] band) into a ring slot, zero outside the band, and
+// (a [band_rows, band_cols] band; row0, col0: the band row and column of
+// the slot's first cell) into a ring slot, zero outside the band, and
 // commit the copies as one group (an empty group where src is null, so
 // that every thread counts the same groups).
 template <int F>
 __device__ __forceinline__ void stage(uint32_t* dst, const int32_t* src,
-                                      int row0, int y0, int tid,
-                                      int band_rows, int Ha) {
+                                      int row0, int col0, int tid,
+                                      int band_rows, int band_cols) {
   using G = Streamed<F>;
   if (src != nullptr) {
     for (int i = tid; i < G::PLANE; i += G::ROWS * TY) {
       const int gb = row0 + i / G::SY;       // band row
-      const int gy = y0 - G::R + i % G::SY;
-      const bool in = gb >= 0 && gb < band_rows && gy >= 0 && gy < Ha;
-      farms::cp_async4(dst + i, in ? src + (size_t)gb * Ha + gy : src,
+      const int gy = col0 + i % G::SY;       // band column
+      const bool in =
+          gb >= 0 && gb < band_rows && gy >= 0 && gy < band_cols;
+      farms::cp_async4(dst + i, in ? src + (size_t)gb * band_cols + gy : src,
                        in ? 4 : 0);
     }
   }
@@ -149,7 +155,8 @@ template <int F>
 __global__ void __launch_bounds__(Streamed<F>::ROWS * TY)
 local_flow_streamed(const int32_t* __restrict__ chain, int S, int nfold,
                     const int32_t* __restrict__ center, int band_rows,
-                    int rows, int halo, int row_offset, int W, int H, int Ha,
+                    int rows, int halo, int row_offset, int band_cols,
+                    int cols, int col_halo, int col_offset, int W, int H,
                     int min_evts, float det_threshold, float neg_ts,
                     int32_t* __restrict__ accept_out,
                     float* __restrict__ a_out, float* __restrict__ b_out,
@@ -166,12 +173,14 @@ local_flow_streamed(const int32_t* __restrict__ chain, int S, int nfold,
   const int y0 = blockIdx.x * TY;
   const int tid = threadIdx.y * TY + threadIdx.x;
   const int row0 = halo + r0 - R;       // band row of the slot's first row
-  const size_t XH = (size_t)band_rows * Ha;
+  const int col0 = col_halo + y0 - R;   // and its band column
+  const size_t XH = (size_t)band_rows * band_cols;
   const int r = r0 + threadIdx.y;
-  const int py = y0 + threadIdx.x;
-  const bool live = r < rows && py < Ha;
+  const int c = y0 + threadIdx.x;       // core column
+  const bool live = r < rows && c < cols;
   const uint32_t tc =
-      live ? (uint32_t)center[(size_t)(halo + r) * Ha + py] : 0u;
+      live ? (uint32_t)center[(size_t)(halo + r) * band_cols + col_halo + c]
+           : 0u;
 
   // ---- the causal fold: surface s is the chain's s-th (oldest first)
   // or, at s == S in default mode, the center ----
@@ -180,14 +189,14 @@ local_flow_streamed(const int32_t* __restrict__ chain, int S, int nfold,
   };
 #pragma unroll
   for (int s = 0; s < NSTAGE - 1; ++s)
-    stage<F>(ring[s], surface(s), row0, y0, tid, band_rows, Ha);
+    stage<F>(ring[s], surface(s), row0, col0, tid, band_rows, band_cols);
   uint32_t vis[NC];
   for (int s = 0; s < nfold; ++s) {
     farms::wait<NSTAGE - 2>();  // this thread's copies of surface s
     __syncthreads();  // everyone's; and slot (s - 1) % NSTAGE is read
     const int next = s + NSTAGE - 1;
-    stage<F>(ring[next % NSTAGE], surface(next), row0, y0, tid, band_rows,
-             Ha);
+    stage<F>(ring[next % NSTAGE], surface(next), row0, col0, tid, band_rows,
+             band_cols);
     const uint32_t* t =
         ring[s % NSTAGE] + (threadIdx.y + R) * G::SY + threadIdx.x + R;
     if (s == 0) {
@@ -229,6 +238,7 @@ local_flow_streamed(const int32_t* __restrict__ chain, int S, int nfold,
   }
 
   const int px = row_offset + r;  // global row
+  const int py = col_offset + c;  // global column
   const float pxf = (float)px;
   const float pyf = (float)py;
   const float n = (float)(K * K);
@@ -275,7 +285,7 @@ local_flow_streamed(const int32_t* __restrict__ chain, int S, int nfold,
   for (int wx = -F; wx <= F; ++wx) {
 #pragma unroll
     for (int wy = -F; wy <= F; ++wy) {
-      const int c = (wx + F) * K + wy + F;
+      const int cw = (wx + F) * K + wy + F;
       float dc = d[(wx - F + R) * SIDE + wy - F + R];  // candidate 0
 #pragma unroll
       for (int ci = 1; ci < 9; ++ci) {
@@ -283,12 +293,12 @@ local_flow_streamed(const int32_t* __restrict__ chain, int S, int nfold,
         const int b = (ci % 3 - 1) * F;
         if (bc == ci) dc = d[(a + wx + R) * SIDE + b + wy + R];
       }
-      dw[c] = dc;
+      dw[cw] = dc;
       const bool t = (wt >> ((wx + F) * SIDE + wy + F)) & 1u;
       const float u = t ? (float)(wa + wx) : -pxf;  // untouched: 0 - p
       const float v = t ? (float)(wb + wy) : -pyf;
       const float yv = dc * neg_ts;
-      if (c == 0) {
+      if (cw == 0) {
         su = u;
         sv = v;
         suu = u * u;
@@ -342,7 +352,7 @@ local_flow_streamed(const int32_t* __restrict__ chain, int S, int nfold,
   }
 
   if (!live) return;
-  const size_t o = (size_t)r * Ha + py;
+  const size_t o = (size_t)r * cols + c;
   accept_out[o] = (local_ok && det_ok && inl >= min_evts) ? 1 : 0;
   a_out[o] = ac;
   b_out[o] = bcf;
@@ -353,17 +363,19 @@ local_flow_streamed(const int32_t* __restrict__ chain, int S, int nfold,
 template <int F>
 int launch_streamed(const void* chain, int S, int fold_center,
                     const void* center, int band_rows, int rows, int halo,
-                    int row_offset, int W, int H, int Ha, int min_evts,
+                    int row_offset, int band_cols, int cols, int col_halo,
+                    int col_offset, int W, int H, int min_evts,
                     float det_threshold, float neg_ts, void* accept, void* a,
                     void* b, void* dtdp, void* cand, void* stream) {
   constexpr int ROWS = Streamed<F>::ROWS;
   const dim3 block(TY, ROWS);
-  const dim3 grid((Ha + TY - 1) / TY, (rows + ROWS - 1) / ROWS);
+  const dim3 grid((cols + TY - 1) / TY, (rows + ROWS - 1) / ROWS);
   local_flow_streamed<F><<<grid, block, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(chain), S, fold_center ? S + 1 : S,
       static_cast<const int32_t*>(center), band_rows, rows, halo, row_offset,
-      W, H, Ha, min_evts, det_threshold, neg_ts,
+      band_cols, cols, col_halo, col_offset, W, H, min_evts, det_threshold,
+      neg_ts,
       static_cast<int32_t*>(accept), static_cast<float*>(a),
       static_cast<float*>(b), static_cast<float*>(dtdp),
       static_cast<int32_t*>(cand));
@@ -475,7 +487,8 @@ template <int F>
 __global__ void __launch_bounds__(General<F>::NT)
 local_flow_general(const int32_t* __restrict__ chain, int S, int nfold,
                    const int32_t* __restrict__ center, int band_rows,
-                   int rows, int halo, int row_offset, int W, int H, int Ha,
+                   int rows, int halo, int row_offset, int band_cols,
+                   int cols, int col_halo, int col_offset, int W, int H,
                    int f_run, int slab_rows, int min_evts,
                    float det_threshold, float neg_ts,
                    int32_t* __restrict__ accept_out,
@@ -502,12 +515,13 @@ local_flow_general(const int32_t* __restrict__ chain, int S, int nfold,
   const int r0 = blockIdx.y * ROWS;  // first core row of the tile
   const int y0 = blockIdx.x * TY;
   const int tid = threadIdx.y * TY + threadIdx.x;
-  const size_t XH = (size_t)band_rows * Ha;
+  const size_t XH = (size_t)band_rows * band_cols;
   const int r = r0 + threadIdx.y;
-  const int py = y0 + threadIdx.x;
-  const bool live = r < rows && py < Ha;
+  const int c = y0 + threadIdx.x;  // core column
+  const bool live = r < rows && c < cols;
   const uint32_t tc =
-      live ? (uint32_t)center[(size_t)(halo + r) * Ha + py] : 0u;
+      live ? (uint32_t)center[(size_t)(halo + r) * band_cols + col_halo + c]
+           : 0u;
 
   // Start copying support rows [x_lo, x_hi) of the tile of surface s (the
   // chain's s-th, oldest first, or at s == S the center) into ring slot
@@ -516,12 +530,14 @@ local_flow_general(const int32_t* __restrict__ chain, int S, int nfold,
     const int32_t* src = s < S ? chain + (size_t)s * XH : center;
     uint32_t* dst = ring + i * PLANE;
     const int row0 = halo + r0 + x_lo;       // band row of the slot's row 0
+    const int col0 = col_halo + y0 - R;      // and its band column
     const int n = (ROWS + x_hi - x_lo - 1) * SY;
     for (int e = tid; e < n; e += NT) {
       const int gb = row0 + e / SY;
-      const int gy = y0 - R + e % SY;
-      const bool in = gb >= 0 && gb < band_rows && gy >= 0 && gy < Ha;
-      farms::cp_async4(dst + e, in ? src + (size_t)gb * Ha + gy : src,
+      const int gy = col0 + e % SY;
+      const bool in =
+          gb >= 0 && gb < band_rows && gy >= 0 && gy < band_cols;
+      farms::cp_async4(dst + e, in ? src + (size_t)gb * band_cols + gy : src,
                        in ? 4 : 0);
     }
   };
@@ -584,6 +600,7 @@ local_flow_general(const int32_t* __restrict__ chain, int S, int nfold,
   };
 
   const int px = row_offset + r;  // global row
+  const int py = col_offset + c;  // global column
   const float pxf = (float)px;
   const float pyf = (float)py;
   const float n = (float)((2 * f + 1) * (2 * f + 1));
@@ -626,11 +643,11 @@ local_flow_general(const int32_t* __restrict__ chain, int S, int nfold,
         const int hi = min(x_hi, a + f + 1);
         for (int ox = max(x_lo, a - f); ox < hi; ++ox) {
           for (int oy = b - f; oy <= b + f; ++oy) {
-            const Cell c = at(x_lo, ox, oy);
+            const Cell cl = at(x_lo, ox, oy);
             const bool first = ox == a - f && oy == b - f;
-            ssum[ci] = first ? c.d : ssum[ci] + c.d;
-            cand[ci].add(first, c.tch ? (float)ox : -pxf,  // untouched: 0 - p
-                         c.tch ? (float)oy : -pyf, c.d * neg_ts);
+            ssum[ci] = first ? cl.d : ssum[ci] + cl.d;
+            cand[ci].add(first, cl.tch ? (float)ox : -pxf,  // untouched: 0 - p
+                         cl.tch ? (float)oy : -pyf, cl.d * neg_ts);
           }
         }
       }
@@ -667,10 +684,10 @@ local_flow_general(const int32_t* __restrict__ chain, int S, int nfold,
       if (nslab > 1 && (ox < x_lo || ox >= x_hi)) continue;
 #pragma unroll
       for (int wy = -f; wy <= f; ++wy) {
-        const Cell c = at(x_lo, ox, wb + wy);
-        const float u = c.tch ? (float)ox : -pxf;  // untouched: 0 - p
-        const float v = c.tch ? (float)(wb + wy) : -pyf;
-        visit(wx == -f && wy == -f, u, v, c.d * neg_ts, c.eli);
+        const Cell cl = at(x_lo, ox, wb + wy);
+        const float u = cl.tch ? (float)ox : -pxf;  // untouched: 0 - p
+        const float v = cl.tch ? (float)(wb + wy) : -pyf;
+        visit(wx == -f && wy == -f, u, v, cl.d * neg_ts, cl.eli);
       }
     }
   };
@@ -725,7 +742,7 @@ local_flow_general(const int32_t* __restrict__ chain, int S, int nfold,
   }
 
   if (!live) return;
-  const size_t o = (size_t)r * Ha + py;
+  const size_t o = (size_t)r * cols + c;
   accept_out[o] = (local_ok && det_ok && inl >= min_evts) ? 1 : 0;
   a_out[o] = ac;
   b_out[o] = bcf;
@@ -736,7 +753,8 @@ local_flow_general(const int32_t* __restrict__ chain, int S, int nfold,
 template <int F>
 int launch_general(const void* chain, int S, int fold_center,
                    const void* center, int band_rows, int rows, int halo,
-                   int row_offset, int W, int H, int Ha, int f, int min_evts,
+                   int row_offset, int band_cols, int cols, int col_halo,
+                   int col_offset, int W, int H, int f, int min_evts,
                    float det_threshold, float neg_ts, void* accept, void* a,
                    void* b, void* dtdp, void* cand, void* stream) {
   int tile, slab_rows;
@@ -750,12 +768,13 @@ int launch_general(const void* chain, int S, int fold_center,
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 block(TY, tile);
-  const dim3 grid((Ha + TY - 1) / TY, (rows + tile - 1) / tile);
+  const dim3 grid((cols + TY - 1) / TY, (rows + tile - 1) / tile);
   local_flow_general<F><<<grid, block, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(chain), S, fold_center ? S + 1 : S,
       static_cast<const int32_t*>(center), band_rows, rows, halo, row_offset,
-      W, H, Ha, f, slab_rows, min_evts, det_threshold, neg_ts,
+      band_cols, cols, col_halo, col_offset, W, H, f, slab_rows, min_evts,
+      det_threshold, neg_ts,
       static_cast<int32_t*>(accept), static_cast<float*>(a),
       static_cast<float*>(b), static_cast<float*>(dtdp),
       static_cast<int32_t*>(cand));
@@ -782,50 +801,55 @@ int streamed_shape(int* tile_rows, int* slab_rows, int* shared_bytes) {
 
 }  // namespace
 
-// C entry point. chain: int32 [S, band_rows, Ha]; center: [band_rows, Ha];
-// the outputs: [rows, Ha]; all contiguous on the current device, with
-// band_rows = rows + 2 * halo (halo 0, or at least the support radius 2F)
-// and row_offset the band's first core row in the sensor; W x H is the
-// semantic sensor of the border checks. fold_center 0 selects correction
-// mode. The kernel picks its instance, tile and slabs from filter_size
-// alone (farms_local_flow_shape); no size depends on S, so every chain
-// length runs. Returns the launch's cudaError_t (cudaErrorInvalidValue for
-// an even k, k < 3, or inconsistent band geometry).
+// C entry point. chain: int32 [S, band_rows, band_cols]; center:
+// [band_rows, band_cols]; the outputs: [rows, cols]; all contiguous on the
+// current device, with band_rows = rows + 2 * halo and band_cols = cols +
+// 2 * col_halo (each halo 0, or at least the support radius 2F), and
+// row_offset, col_offset the band's first core row and column in the
+// sensor; W x H is the semantic sensor of the border checks. fold_center 0
+// selects correction mode. The kernel picks its instance, tile and slabs
+// from filter_size alone (farms_local_flow_shape); no size depends on S,
+// so every chain length runs. Returns the launch's cudaError_t
+// (cudaErrorInvalidValue for an even k, k < 3, or inconsistent band
+// geometry).
 extern "C" int farms_local_flow(const void* chain, int S, int fold_center,
                                 const void* center, int band_rows, int rows,
-                                int halo, int row_offset, int W, int H,
-                                int Ha, int filter_size, int min_evts,
+                                int halo, int row_offset, int band_cols,
+                                int cols, int col_halo, int col_offset, int W,
+                                int H, int filter_size, int min_evts,
                                 float det_threshold, float neg_ts,
                                 void* accept, void* a, void* b, void* dtdp,
                                 void* cand, void* stream) {
   const int F = filter_size / 2;
   if (filter_size < 3 || filter_size % 2 == 0 || S < 1 || rows < 1 ||
-      Ha < 1 || band_rows != rows + 2 * halo || (halo != 0 && halo < 2 * F))
+      cols < 1 || band_rows != rows + 2 * halo ||
+      band_cols != cols + 2 * col_halo || (halo != 0 && halo < 2 * F) ||
+      (col_halo != 0 && col_halo < 2 * F))
     return (int)cudaErrorInvalidValue;
   if (filter_size == 3)
     return launch_streamed<1>(chain, S, fold_center, center, band_rows, rows,
-                              halo, row_offset, W, H, Ha, min_evts,
-                              det_threshold, neg_ts, accept, a, b, dtdp, cand,
-                              stream);
+                              halo, row_offset, band_cols, cols, col_halo,
+                              col_offset, W, H, min_evts, det_threshold,
+                              neg_ts, accept, a, b, dtdp, cand, stream);
   if (filter_size == 5)
     return launch_streamed<2>(chain, S, fold_center, center, band_rows, rows,
-                              halo, row_offset, W, H, Ha, min_evts,
-                              det_threshold, neg_ts, accept, a, b, dtdp, cand,
-                              stream);
+                              halo, row_offset, band_cols, cols, col_halo,
+                              col_offset, W, H, min_evts, det_threshold,
+                              neg_ts, accept, a, b, dtdp, cand, stream);
   if (filter_size == 7)
     return launch_general<3>(chain, S, fold_center, center, band_rows, rows,
-                             halo, row_offset, W, H, Ha, F, min_evts,
-                             det_threshold, neg_ts, accept, a, b, dtdp, cand,
-                             stream);
+                             halo, row_offset, band_cols, cols, col_halo,
+                             col_offset, W, H, F, min_evts, det_threshold,
+                             neg_ts, accept, a, b, dtdp, cand, stream);
   if (filter_size == 9)
     return launch_general<4>(chain, S, fold_center, center, band_rows, rows,
-                             halo, row_offset, W, H, Ha, F, min_evts,
-                             det_threshold, neg_ts, accept, a, b, dtdp, cand,
-                             stream);
+                             halo, row_offset, band_cols, cols, col_halo,
+                             col_offset, W, H, F, min_evts, det_threshold,
+                             neg_ts, accept, a, b, dtdp, cand, stream);
   return launch_general<0>(chain, S, fold_center, center, band_rows, rows,
-                           halo, row_offset, W, H, Ha, F, min_evts,
-                           det_threshold, neg_ts, accept, a, b, dtdp, cand,
-                           stream);
+                           halo, row_offset, band_cols, cols, col_halo,
+                           col_offset, W, H, F, min_evts, det_threshold,
+                           neg_ts, accept, a, b, dtdp, cand, stream);
 }
 
 // The local-flow kernel's shape at filter_size, as farms_local_flow

@@ -29,16 +29,16 @@ _F = ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # chain, S, fold_center, center, band_rows, rows, halo, row_offset,
-    # W, H, Ha, filter_size, min_evts, det_threshold, neg_ts, accept, a, b,
-    # dtdp, cand, stream
+    # band_cols, cols, col_halo, col_offset, W, H, filter_size, min_evts,
+    # det_threshold, neg_ts, accept, a, b, dtdp, cand, stream
     "farms_local_flow": (_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _F, _F, _P, _P, _P, _P, _P, _P),
+                         _I, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P),
     # filter_size, tile_rows, slab_rows, shared_bytes (out)
     "farms_local_flow_shape": (_I, _IP, _IP, _IP),
-    # integ, integ_rows, rows, halo, Ha, y_clip, n_scales, jump, flow_vx,
-    # flow_vy, tvx, tvy, scale, stream
-    "farms_aperture": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                       _P),
+    # integ, integ_rows, rows, halo, cols, col_halo, y_clip, n_scales,
+    # jump, flow_vx, flow_vy, tvx, tvy, scale, stream
+    "farms_aperture": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                       _P, _P),
     # rows, Ha, jump, tile_rows, tile_cols, slab_rows, slab_cols,
     # strip_rows, strip_cols, shared_bytes (out)
     "farms_aperture_shape": (_I, _I, _I, _IP, _IP, _IP, _IP, _IP, _IP,

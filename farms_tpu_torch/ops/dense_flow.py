@@ -36,45 +36,48 @@ def _full(like: torch.Tensor, value: float) -> torch.Tensor:
 
 
 def _cell_maps(chain: torch.Tensor, center: torch.Tensor, cfg: FlowConfig,
-               fold_center: bool, halo: int = 0, row_offset: int = 0):
+               fold_center: bool, halo: int = 0, row_offset: int = 0,
+               col_halo: int = 0, col_offset: int = 0):
     """Per-offset causal-view quantities over the (2R+1)^2 support.
 
     The causal fold runs over the chain, then the center surface when
     `fold_center`. With `halo` > 0 the surfaces are bands of `halo` rows
-    above and below the core rows (local_flow_core). Returns stacked
-    [(2R+1)^2, rows, Ha] maps (d, eli, u, v, yv) of the core rows, offset
-    index (ox + R) * (2R + 1) + (oy + R).
+    above and below the core rows, with `col_halo` > 0 of `col_halo`
+    columns left and right of the core columns (local_flow_core). Returns
+    stacked [(2R+1)^2, rows, cols] maps (d, eli, u, v, yv) of the core
+    cells, offset index (ox + R) * (2R + 1) + (oy + R).
     """
     rows = center.shape[0] - 2 * halo
-    Ha = center.shape[1]
+    cols = center.shape[1] - 2 * col_halo
     R = cfg.support_radius
     folded = torch.cat([chain, center[None]], 0) if fold_center else chain
-    if halo:
-        # the band already holds the neighbour rows (zeros past the sensor
-        # edge): keep exactly R of them on each side, pad only y
-        surfs = F.pad(folded[:, halo - R:halo + rows + R], (R, R))
-    else:
-        # out-of-sensor cells read 0 (never written), the kernels' pad
-        surfs = F.pad(folded, (R, R, R, R))
+    # an axis with a halo already holds the neighbour cells (zeros past the
+    # sensor edge): keep exactly R of them on each side; an axis without
+    # one reads 0 (never written) out of the sensor, the kernels' pad
+    rsl = slice(halo - R, halo + rows + R) if halo else slice(None)
+    csl = slice(col_halo - R, col_halo + cols + R) if col_halo else slice(None)
+    pr, pc = (0 if halo else R), (0 if col_halo else R)
+    surfs = F.pad(folded[:, rsl, csl], (pc, pc, pr, pr))
     px = (torch.arange(rows, dtype=torch.int32, device=center.device)[:, None]
           + row_offset)
-    py = torch.arange(Ha, dtype=torch.int32, device=center.device)[None, :]
-    pxf = px.to(torch.float32).expand(rows, Ha)
-    pyf = py.to(torch.float32).expand(rows, Ha)
-    t_c = center[halo:halo + rows]
+    py = (torch.arange(cols, dtype=torch.int32, device=center.device)[None, :]
+          + col_offset)
+    pxf = px.to(torch.float32).expand(rows, cols)
+    pyf = py.to(torch.float32).expand(rows, cols)
+    t_c = center[halo:halo + rows, col_halo:col_halo + cols]
     neg_ts = -cfg.ts_to_sec
     D, ELI, U, V, YV = [], [], [], [], []
     for ox in range(-R, R + 1):
         for oy in range(-R, R + 1):
             if ox == 0 and oy == 0:
-                d = torch.zeros((rows, Ha), dtype=torch.float32,
+                d = torch.zeros((rows, cols), dtype=torch.float32,
                                 device=t_c.device)
                 # eligibility: stamp1 not in {0, 1}, an unsigned-domain test
                 eli = (t_c != 0) & (t_c != 1)
                 u = torch.zeros_like(d)
                 v = torch.zeros_like(d)
             else:
-                sh = surfs[:, R + ox:R + ox + rows, R + oy:R + oy + Ha]
+                sh = surfs[:, R + ox:R + ox + rows, R + oy:R + oy + cols]
                 # the neighbor's newest chain value not in the center's
                 # future: order stamp1 (uint32 in int32) values through the
                 # int32 difference, exact mod 2^32; a signed compare of the
@@ -104,7 +107,8 @@ def _cell_maps(chain: torch.Tensor, center: torch.Tensor, cfg: FlowConfig,
 
 def local_flow_core(chain: torch.Tensor, center: torch.Tensor,
                     cfg: FlowConfig, fold_center: bool = True,
-                    halo: int = 0, row_offset: int = 0):
+                    halo: int = 0, row_offset: int = 0, col_halo: int = 0,
+                    col_offset: int = 0):
     """Local plane fit for every pixel against its causal surface view.
 
     `chain` is the int32 [S, W, H] stack of stamp1 surfaces before the
@@ -127,24 +131,32 @@ def local_flow_core(chain: torch.Tensor, center: torch.Tensor,
     row, keeps coordinates and border checks global: the border rules use
     the semantic cfg.width and cfg.height, never the band or array extent.
 
+    Tile mode (`col_halo` >= R as well, a 2-D tile of parallel/tiling.py):
+    the bands also carry `col_halo` exchanged neighbour columns on each
+    side, [.., rows + 2*halo, cols + 2*col_halo], and `col_offset`, the
+    tile's first global column, keeps y global as row_offset keeps x.
+
     Returns exactly what the CUDA kernels write: accept i32, a f32, b f32,
     dtdp f32 and the winning candidate id i32 in scan order (-1 where no
-    candidate window is in bounds), each [rows, Ha] ([W, H] without halo).
+    candidate window is in bounds), each [rows, cols] of the core cells
+    ([W, H] without halos).
     """
     W, H = cfg.width, cfg.height        # semantic bounds (border rules)
     f = cfg.f_rad
     R = cfg.support_radius
-    if halo and halo < R:
-        raise ValueError(f"halo {halo} < support_radius {R}")
+    for h in (halo, col_halo):
+        if h and h < R:
+            raise ValueError(f"halo {h} < support_radius {R}")
     side = 2 * R + 1
     dev = center.device
     rows = center.shape[0] - 2 * halo
-    Ha = center.shape[1]
+    cols = center.shape[1] - 2 * col_halo
     D, ELI, U, V, YV = _cell_maps(chain, center, cfg, fold_center, halo,
-                                  row_offset)
+                                  row_offset, col_halo, col_offset)
     px = (torch.arange(rows, dtype=torch.int32, device=dev)[:, None]
           + row_offset)
-    py = torch.arange(Ha, dtype=torch.int32, device=dev)[None, :]
+    py = (torch.arange(cols, dtype=torch.int32, device=dev)[None, :]
+          + col_offset)
 
     cand_offsets = [(a, b) for a in (-f, 0, f) for b in (-f, 0, f)]
     win_cells = [(wx, wy) for wx in range(-f, f + 1)
@@ -154,8 +166,8 @@ def local_flow_core(chain: torch.Tensor, center: torch.Tensor,
 
     # ---- scores of the 9 candidate windows, first strict minimum ----
     inf = float("inf")
-    best = torch.full((rows, Ha), inf, dtype=torch.float32, device=dev)
-    bc = torch.zeros((rows, Ha), dtype=torch.int32, device=dev)
+    best = torch.full((rows, cols), inf, dtype=torch.float32, device=dev)
+    bc = torch.zeros((rows, cols), dtype=torch.int32, device=dev)
     for ci, (a, b) in enumerate(cand_offsets):
         ssum = None
         for wx, wy in win_cells:
@@ -211,7 +223,7 @@ def local_flow_core(chain: torch.Tensor, center: torch.Tensor,
 
     # ---- inlier count with the winner's plane (vFlow.cpp:1360-1366) ----
     half = dtdp * 0.5
-    inl = torch.zeros((rows, Ha), dtype=torch.int32, device=dev)
+    inl = torch.zeros((rows, cols), dtype=torch.int32, device=dev)
     for eli, u, v, yv in cells:
         hit = (torch.abs(a_coef * u + b_coef * v - yv) < half) & eli
         inl = inl + hit.to(torch.int32)
@@ -219,6 +231,17 @@ def local_flow_core(chain: torch.Tensor, center: torch.Tensor,
     accept = local_ok & det_ok & (inl >= cfg.min_evts_on_plane)
     cand = torch.where(local_ok, bc, -1)
     return accept.to(torch.int32), a_coef, b_coef, dtdp, cand
+
+
+# PyTorch's CPU kernels evaluate atan2, cos and sin with vector code over
+# whole vectors of a contiguous run and with scalar code over its last few
+# elements, and the two may differ in the last bit; a run longer than the
+# parallel grain (32768 elements) is also cut into per-thread runs at
+# arbitrary points. So that a pixel's bits do not depend on where it lies
+# (in a tile's map or in the whole sensor's), the CPU evaluates trig_tail
+# over flat runs of whole vectors, each shorter than the grain.
+_RUN_QUANTUM = 64       # a multiple of every vector loop's step
+_RUN = 16384            # elements a run: whole quanta, below the grain
 
 
 def trig_tail(accept: torch.Tensor, a_coef: torch.Tensor,
@@ -229,7 +252,21 @@ def trig_tail(accept: torch.Tensor, a_coef: torch.Tensor,
     vFlow.cpp:315 gate. The trig form is kept deliberately: on axis-aligned
     planes the vx != 0 gate depends on cos(atan2(...)) not rounding to 0.
     Returns per-pixel maps (raw_vx, raw_vy, gate_valid, length, theta).
+    Elementwise, and on the CPU independent of each element's place in
+    its map (see _RUN).
     """
+    if accept.device.type != "cpu":
+        return _trig_tail(accept, a_coef, b_coef, dtdp)
+    shape, n = accept.shape, accept.numel()
+    pad = -n % _RUN_QUANTUM
+    flat = [torch.cat([t.reshape(-1), t.new_zeros(pad)])
+            for t in (accept, a_coef, b_coef, dtdp)]
+    runs = [_trig_tail(*(t[i:i + _RUN] for t in flat))
+            for i in range(0, n + pad, _RUN)]
+    return tuple(torch.cat(parts)[:n].reshape(shape) for parts in zip(*runs))
+
+
+def _trig_tail(accept, a_coef, b_coef, dtdp):
     acc = accept > 0
     speed = 1.0 / dtdp
     angle = torch.atan2(a_coef, b_coef)
@@ -281,9 +318,28 @@ def aperture_y_clip(cfg: FlowConfig) -> int:
     return min(y_hi + 1, cfg.height)
 
 
+def tile_band(integ: torch.Tensor, row0: int, rows: int, col0: int,
+              cols: int, A: int, y_clip: int) -> torch.Tensor:
+    """The float64 integral band [4, rows + 2A + 1, cols + 2A + 1] of the
+    tile of rows x cols cells at (row0, col0), cut from a whole integral
+    [4, W + 1, H + 1]: band cell (i, j) holds the integral at global row
+    row0 - A + i and column col0 - A + j, each clamped to the integral as
+    the whole-sensor pool clamps a corner (x to [0, W], y to [0, y_clip]).
+    So the band is 0 before the sensor in both axes, the total row below
+    it, and pre-clamped in y: columns past y_clip repeat column y_clip.
+    What parallel/halo.assemble_integral_tile gives each tile."""
+    dev = integ.device
+    xs = torch.clamp(torch.arange(rows + 2 * A + 1, device=dev) + row0 - A,
+                     0, integ.shape[1] - 1)
+    ys = torch.clamp(torch.arange(cols + 2 * A + 1, device=dev) + col0 - A,
+                     0, y_clip)
+    return integ[:, xs][:, :, ys].contiguous()
+
+
 def dense_aperture(flow_len: torch.Tensor, flow_vx: torch.Tensor,
                    flow_vy: torch.Tensor, cfg: FlowConfig,
-                   want_ids: bool = False, halo: int = 0, integ=None):
+                   want_ids: bool = False, halo: int = 0, integ=None,
+                   col_halo: int = 0):
     """Multi-scale aperture pooling for every pixel (plain path).
 
     The plain version of the aperture kernel, over the integral image of
@@ -304,27 +360,35 @@ def dense_aperture(flow_len: torch.Tensor, flow_vx: torch.Tensor,
     rows are then halo + r + s + 1 and halo + r - s: the band's rows above
     the sensor hold 0 and those below it the sensor's total row, so the
     reference's x clamp needs no clamp here; y clamps as without a band.
+
+    Tile mode (a 2-D tile of parallel/tiling.py): `col_halo` >=
+    max_window + 1 too, and `integ` is the tile's band [4, rows + 2*halo
+    + 1, cols + 2*col_halo + 1] pre-clamped in y (tile_band), so a
+    pixel's corner columns col_halo + c + s + 1 and col_halo + c - s need
+    no clamp either; flow_* are the tile's core cells [rows, cols].
     """
+    A = cfg.max_window + 1
     if integ is None:
         integ = build_integral(flow_len, flow_vx, flow_vy)
-    elif halo < cfg.max_window + 1:
-        raise ValueError(f"halo {halo} < max_window + 1 "
-                         f"{cfg.max_window + 1}")
-    rows, Ha = flow_vx.shape
+    elif halo < A or (col_halo and col_halo < A):
+        raise ValueError(f"halo {halo} or col_halo {col_halo} < "
+                         f"max_window + 1 {A}")
+    rows, cols = flow_vx.shape
     dev = flow_vx.device
-    yc = aperture_y_clip(cfg)
-    xi = integ.shape[1] - 1            # last integral row a corner may read
+    # last integral row and column a corner may read: the clamps are the
+    # reference's on a whole-sensor integral and never bind on a band
+    xi = integ.shape[1] - 1
+    yc = integ.shape[2] - 1 if col_halo else aperture_y_clip(cfg)
     px = torch.arange(rows, dtype=torch.int64, device=dev) + halo
-    py = torch.arange(Ha, dtype=torch.int64, device=dev)
+    py = torch.arange(cols, dtype=torch.int64, device=dev) + col_halo
     one = _full(flow_vx, 1.0)
-    best_ml = torch.full((rows, Ha), -1.0, dtype=torch.float32, device=dev)
-    best_vx = torch.zeros((rows, Ha), dtype=torch.float32, device=dev)
+    best_ml = torch.full((rows, cols), -1.0, dtype=torch.float32,
+                         device=dev)
+    best_vx = torch.zeros((rows, cols), dtype=torch.float32, device=dev)
     best_vy = torch.zeros_like(best_vx)
-    best_s = torch.zeros((rows, Ha), dtype=torch.int32, device=dev)
+    best_s = torch.zeros((rows, cols), dtype=torch.int32, device=dev)
     mls = []
     for s in cfg.scales:
-        # the clamp is the reference's x clamp on a whole-sensor integral
-        # and never binds on a band
         xh = torch.clamp(px + s + 1, 0, xi)[:, None]
         xl = torch.clamp(px - s, 0, xi)[:, None]
         yh = torch.clamp(py + s + 1, 0, yc)[None, :]

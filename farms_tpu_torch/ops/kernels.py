@@ -11,7 +11,8 @@ between the two.
 Each wrapper counts its kernel launches in `LAUNCHES` (only where it
 launches; plain-path calls do not count), so a run can show that its main
 path went through the kernels; a kernel's halo-mode launches (the row
-shards of parallel/halo.py) count under the same name.
+shards of parallel/halo.py) and tile-mode launches (the 2-D tiles of
+parallel/tiling.py) count under the same name.
 """
 from __future__ import annotations
 
@@ -72,7 +73,8 @@ def local_flow_shape(filter_size: int) -> dict:
 
 
 def aperture_shape(rows: int, Ha: int, jump: int) -> dict:
-    """How the pool kernel runs on rows x Ha pixels at this window jump,
+    """How the pool kernel runs on rows x Ha pixels (Ha: a tile's core
+    columns in tile mode) at this window jump,
     as csrc/aperture.cu decides it on the current card
     (farms_aperture_shape): its tile, `tile_rows` x `tile_cols` pixels
     (two a thread; the rows chosen so that the grid fits the card's SMs),
@@ -92,68 +94,78 @@ def aperture_shape(rows: int, Ha: int, jump: int) -> dict:
                     (o.value for o in out)))
 
 
-def _band_rows(t: torch.Tensor, name: str, cfg: FlowConfig, halo: int,
-               row_offset: int) -> int:
-    """Core rows of a [rows + 2*halo, Ha] band (or of the [array W, Ha]
-    surface without halo), checked against the config's array geometry."""
+def _band_extent(t: torch.Tensor, name: str, cfg: FlowConfig, halo: int,
+                 row_offset: int, col_halo: int = 0,
+                 col_offset: int = 0) -> tuple[int, int]:
+    """Core (rows, cols) of a [rows + 2*halo, cols + 2*col_halo] band,
+    each axis checked against the config's array geometry: an axis
+    without a halo is the whole array extent, one with a halo a core that
+    fits the array at its offset."""
     if t.dim() != 2:
         raise ValueError(f"{name} must be 2-D, got {tuple(t.shape)}")
-    if not halo:
-        expect = (cfg.array_width, cfg.array_height)
-    else:
-        rows = t.shape[0] - 2 * halo
-        if rows < 1 or row_offset < 0 or row_offset + rows > cfg.array_width:
-            raise ValueError(f"{name}: band of {t.shape[0]} rows with halo "
-                             f"{halo} at row {row_offset} does not fit the "
-                             f"array width {cfg.array_width}")
-        expect = (t.shape[0], cfg.array_height)
-    if tuple(t.shape) != expect:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{expect}")
-    return t.shape[0] - 2 * halo
+    core = []
+    for n, h, off, extent, axis in (
+            (t.shape[0], halo, row_offset, cfg.array_width, "rows"),
+            (t.shape[1], col_halo, col_offset, cfg.array_height, "columns")):
+        if not h:
+            if n != extent:
+                raise ValueError(f"{name} has {n} {axis}, expected {extent} "
+                                 f"(the array geometry, no halo)")
+        elif n - 2 * h < 1 or off < 0 or off + n - 2 * h > extent:
+            raise ValueError(f"{name}: band of {n} {axis} with halo {h} at "
+                             f"{off} does not fit the array's {extent}")
+        core.append(n - 2 * h)
+    return core[0], core[1]
 
 
 def local_flow(chain: torch.Tensor, center: torch.Tensor, cfg: FlowConfig,
-               fold_center: bool = True, halo: int = 0, row_offset: int = 0):
+               fold_center: bool = True, halo: int = 0, row_offset: int = 0,
+               col_halo: int = 0, col_offset: int = 0):
     """Local plane fit; contract of dense_flow.local_flow_core.
 
     chain int32 [S, W, H], center int32 [W, H] (stamp1), at the array
     geometry [array_width, array_height] of a padded config (its pad
-    cells never written); fold_center=False is the correction mode. Halo mode (halo >= R, parallel/halo.py): chain
-    [S, rows + 2*halo, Ha] and center [rows + 2*halo, Ha] bands of a row
-    shard whose first global row is row_offset. Returns accept i32, a f32,
-    b f32, dtdp f32, cand i32, each shaped as center's core rows.
+    cells never written); fold_center=False is the correction mode. Halo
+    mode (halo >= R, parallel/halo.py): chain [S, rows + 2*halo, Ha] and
+    center [rows + 2*halo, Ha] bands of a row shard whose first global row
+    is row_offset. Tile mode (col_halo >= R as well, parallel/tiling.py):
+    the bands also carry col_halo columns on each side of the tile's cols
+    core columns, whose first global column is col_offset. Returns accept
+    i32, a f32, b f32, dtdp f32, cand i32, each shaped as center's core
+    cells.
     """
     if center.device.type == "cpu":
         return local_flow_core(chain, center, cfg, fold_center, halo,
-                               row_offset)
+                               row_offset, col_halo, col_offset)
     if center.device.type != "cuda":
         raise ValueError(f"no local-flow kernel for device {center.device}")
     R = cfg.support_radius
-    if halo and halo < R:
-        raise ValueError(f"halo {halo} < support_radius {R}")
+    for h in (halo, col_halo):
+        if h and h < R:
+            raise ValueError(f"halo {h} < support_radius {R}")
     dev = center.device
-    rows = _band_rows(center, "center", cfg, halo, row_offset)
-    Xb, Ha = center.shape
-    _check(center, "center", torch.int32, (Xb, Ha), dev)
+    rows, cols = _band_extent(center, "center", cfg, halo, row_offset,
+                              col_halo, col_offset)
+    Xb, Yb = center.shape
+    _check(center, "center", torch.int32, (Xb, Yb), dev)
     if chain.dim() != 3 or chain.shape[0] < 1:
-        raise ValueError(f"chain must be [S >= 1, {Xb}, {Ha}], got "
+        raise ValueError(f"chain must be [S >= 1, {Xb}, {Yb}], got "
                          f"{tuple(chain.shape)}")
-    _check(chain, "chain", torch.int32, (chain.shape[0], Xb, Ha), dev)
+    _check(chain, "chain", torch.int32, (chain.shape[0], Xb, Yb), dev)
     S = chain.shape[0]
     k = cfg.filter_size
     lib = _build.load()
-    accept = torch.empty((rows, Ha), dtype=torch.int32, device=dev)
-    a = torch.empty((rows, Ha), dtype=torch.float32, device=dev)
+    accept = torch.empty((rows, cols), dtype=torch.int32, device=dev)
+    a = torch.empty((rows, cols), dtype=torch.float32, device=dev)
     b = torch.empty_like(a)
     dtdp = torch.empty_like(a)
     cand = torch.empty_like(accept)
     rc = lib.farms_local_flow(
         chain.data_ptr(), S, int(fold_center), center.data_ptr(), Xb, rows,
-        halo, row_offset, cfg.width, cfg.height, Ha, k,
-        cfg.min_evts_on_plane, cfg.det_threshold, -cfg.ts_to_sec,
-        accept.data_ptr(), a.data_ptr(), b.data_ptr(), dtdp.data_ptr(),
-        cand.data_ptr(), _stream(dev))
+        halo, row_offset, Yb, cols, col_halo, col_offset, cfg.width,
+        cfg.height, k, cfg.min_evts_on_plane, cfg.det_threshold,
+        -cfg.ts_to_sec, accept.data_ptr(), a.data_ptr(), b.data_ptr(),
+        dtdp.data_ptr(), cand.data_ptr(), _stream(dev))
     name = "local_flow" if k in (3, 5) else "local_flow_general"
     _raise_on(rc, name)
     LAUNCHES[name] += 1
@@ -189,7 +201,7 @@ def integral(flow_len: torch.Tensor, flow_vx: torch.Tensor,
 
 def aperture(flow_len: torch.Tensor, flow_vx: torch.Tensor,
              flow_vy: torch.Tensor, cfg: FlowConfig, halo: int = 0,
-             integ=None):
+             integ=None, col_halo: int = 0):
     """Multi-scale aperture pooling; contract of dense_flow.dense_aperture.
 
     f32 [W, H] flow surfaces (the array geometry of a padded config) in;
@@ -200,42 +212,52 @@ def aperture(flow_len: torch.Tensor, flow_vx: torch.Tensor,
     Band mode (parallel/halo.py): `integ` is the float64 integral band
     [4, rows + 2*halo + 1, Ha + 1] of a row shard, halo >= max_window + 1,
     and the flow surfaces and outputs are the shard's core rows [rows, Ha].
+    Tile mode (parallel/tiling.py): col_halo >= max_window + 1 as well,
+    `integ` the tile's band [4, rows + 2*halo + 1, cols + 2*col_halo + 1]
+    pre-clamped in y (dense_flow.tile_band), the flow surfaces and outputs
+    the tile's core cells [rows, cols].
     """
-    if (integ is None) != (halo == 0):
+    if (integ is None) != (halo == 0) or (col_halo and integ is None):
         raise ValueError("an integral band comes with its halo, and a halo "
                          "with its band")
     if flow_len.device.type == "cpu":
         return dense_aperture(flow_len, flow_vx, flow_vy, cfg, halo=halo,
-                              integ=integ)
+                              integ=integ, col_halo=col_halo)
     if flow_len.device.type != "cuda":
         raise ValueError(f"no aperture kernel for device {flow_len.device}")
-    if halo and halo < cfg.max_window + 1:
-        raise ValueError(f"halo {halo} < max_window + 1 "
-                         f"{cfg.max_window + 1}")
+    A = cfg.max_window + 1
+    if (halo and halo < A) or (col_halo and col_halo < A):
+        raise ValueError(f"halo {halo} or col_halo {col_halo} < "
+                         f"max_window + 1 {A}")
     dev = flow_len.device
-    shape = ((cfg.array_width, cfg.array_height) if integ is None
-             else flow_len.shape)
-    if integ is not None and (flow_len.dim() != 2
-                              or shape[1] != cfg.array_height):
-        raise ValueError(f"flow_len has shape {tuple(shape)}, expected "
-                         f"[rows, {cfg.array_height}]")
+    if integ is None:
+        shape = (cfg.array_width, cfg.array_height)
+    else:
+        if flow_len.dim() != 2 or (
+                not col_halo and flow_len.shape[1] != cfg.array_height):
+            raise ValueError(f"flow_len has shape {tuple(flow_len.shape)}, "
+                             f"expected [rows, {cfg.array_height}]")
+        shape = tuple(flow_len.shape)
     for name, t in (("flow_len", flow_len), ("flow_vx", flow_vx),
                     ("flow_vy", flow_vy)):
         _check(t, name, torch.float32, shape, dev)
-    rows, Ha = shape
+    rows, cols = shape
     if integ is None:
         integ = integral(flow_len, flow_vx, flow_vy)
-    _check(integ, "integral", torch.float64, (4, rows + 2 * halo + 1, Ha + 1),
-           dev)
+    integ_cols = cols + 2 * col_halo + 1
+    _check(integ, "integral", torch.float64,
+           (4, rows + 2 * halo + 1, integ_cols), dev)
+    # a tile's band is pre-clamped in y: its clamp is the band's extent
+    y_clip = integ_cols - 1 if col_halo else aperture_y_clip(cfg)
     lib = _build.load()
-    tvx = torch.empty((rows, Ha), dtype=torch.float32, device=dev)
+    tvx = torch.empty((rows, cols), dtype=torch.float32, device=dev)
     tvy = torch.empty_like(tvx)
-    scale = torch.empty((rows, Ha), dtype=torch.int32, device=dev)
+    scale = torch.empty((rows, cols), dtype=torch.int32, device=dev)
     rc = lib.farms_aperture(
-        integ.data_ptr(), integ.shape[1], rows, halo, Ha,
-        aperture_y_clip(cfg), cfg.num_scales, cfg.window_jump,
-        flow_vx.data_ptr(), flow_vy.data_ptr(), tvx.data_ptr(),
-        tvy.data_ptr(), scale.data_ptr(), _stream(dev))
+        integ.data_ptr(), integ.shape[1], rows, halo, cols, col_halo,
+        y_clip, cfg.num_scales, cfg.window_jump, flow_vx.data_ptr(),
+        flow_vy.data_ptr(), tvx.data_ptr(), tvy.data_ptr(), scale.data_ptr(),
+        _stream(dev))
     _raise_on(rc, "aperture")
     LAUNCHES["aperture"] += 1
     return tvx, tvy, scale

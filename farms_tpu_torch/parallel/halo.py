@@ -36,7 +36,8 @@ import torch.nn.functional as F
 from farms_tpu_torch.config import FlowConfig
 from farms_tpu_torch.events.io import EventBatch, FlowOutput
 from farms_tpu_torch.ops import kernels
-from farms_tpu_torch.ops.dense_flow import onehot_gather, trig_tail
+from farms_tpu_torch.ops.dense_flow import (aperture_y_clip, onehot_gather,
+                                            tile_band, trig_tail)
 from farms_tpu_torch.parallel import mesh
 from farms_tpu_torch.pipeline.engine import (FlowEngine, _coarse,
                                              _empty_output, _lane_table,
@@ -62,9 +63,14 @@ def _ring(sends, recvs, band: mesh.Axis) -> None:
 
 
 def exchange_halo(arr: torch.Tensor, h: int, band: mesh.Axis,
-                  below: torch.Tensor | None = None) -> torch.Tensor:
+                  below: torch.Tensor | None = None,
+                  dim: int = -2) -> torch.Tensor:
     """Extend a [..., rows, H] shard with h rows from each side of the ring
-    of the band's n ranks (this one at index `rank` of them).
+    of the band's n ranks (this one at index `rank` of them); with dim=-1
+    a [..., X, cols] tile with h columns from the ring of its grid's y
+    line (parallel/tiling.py exchanges the rows first, then the columns of
+    the row-extended array, which carries the corners), zero past the
+    edge.
 
     Returns [..., rows + 2h, H]; bands past the global sensor edge are
     zero above the sensor (index 0's top) and zero or, if given, `below`
@@ -77,6 +83,9 @@ def exchange_halo(arr: torch.Tensor, h: int, band: mesh.Axis,
     """
     if h == 0:
         return arr
+    if dim == -1:
+        return exchange_halo(arr.transpose(-1, -2), h, band).transpose(
+            -1, -2).contiguous()
     n, rank = band.size, band.index
     rows = arr.shape[-2]
 
@@ -144,6 +153,82 @@ def assemble_integral_band(flow_len, flow_vx, flow_vy, band: mesh.Axis,
     return exchange_halo(own, A + 1, band, below=total)[:, :-1].contiguous()
 
 
+def assemble_integral_tile(flow_len, flow_vx, flow_vy, grid: mesh.TileMesh,
+                           A: int, y_clip: int) -> torch.Tensor:
+    """The float64 global-integral band [4, rows + 2A + 1, cols + 2A + 1]
+    of this rank's tile, pre-clamped in y: the values
+    dense_flow.tile_band cuts from the whole integral.
+
+    As in assemble_integral_band, no rank integrates another's cells:
+    1. each rank builds the float64 prefix integral L of its own tile
+       (kernels.integral);
+    2. along y: the row totals L[:, :, -1] of the tiles to the left,
+       gathered on the y line, turn L into the integral of this row
+       band's strip up to each global column (M);
+    3. along x: the bottom rows M[:, -1] of the strips above, gathered on
+       the x line, turn M into the global integral of the tile's cells,
+       and the sum of all of them is the sensor's total row T;
+    4. the global rows and columns row0 + 1 .. row0 + rows, col0 + 1 ..
+       col0 + cols take A + 1 more rows from each side of the x ring (0
+       above the sensor, T below it), then A + 1 more columns from each
+       side of the y ring (0 left of the sensor), less the last of each;
+    5. the y pre-clamp: band columns past y_clip take column y_clip, from
+       this band or, where the tile starts past y_clip + A (the
+       reference's y-by-width quirk on a tall sensor), from its owner on
+       the y line (one all-gather of one column).
+    With one rank the band is cut from L, the whole-sensor integral,
+    exactly.
+    """
+    L = kernels.integral(flow_len, flow_vx, flow_vy)  # [4, rows+1, cols+1]
+    rows, cols = flow_len.shape
+    xa, ya = grid.x, grid.y
+    if xa.size == 1 and ya.size == 1:
+        return tile_band(L, 0, rows, 0, cols, A, y_clip)
+
+    def offsets(part, axis):
+        """(sum of the parts before this rank on the axis, sum of all)."""
+        parts = part.new_empty((axis.size * part.shape[0], part.shape[1]))
+        dist.all_gather_into_tensor(parts, part.contiguous(),
+                                    group=axis.group)
+        parts = parts.view(axis.size, *part.shape)
+        before = total = torch.zeros_like(part)
+        for k in range(axis.size):                # left fold, axis order
+            if k == axis.index:
+                before = total
+            total = total + parts[k]
+        return before, total
+
+    M = L
+    if ya.size > 1:
+        left, _ = offsets(L[:, :, -1], ya)
+        M = L + left[:, :, None]
+    if xa.size > 1:
+        above, total = offsets(M[:, -1], xa)
+        N = M + above[:, None, :]
+    else:
+        N, total = M, M[:, -1]
+    band = exchange_halo(N[:, 1:, 1:], A + 1, xa,
+                         below=total[:, None, 1:])[:, :-1]
+    band = exchange_halo(band, A + 1, ya, dim=-1)[:, :, :-1]
+    # the y pre-clamp: global column of band column c is col0 - A + c
+    first = ya.index * cols - A
+    nb = band.shape[2]
+    if any(j * cols - A > y_clip for j in range(ya.size)):
+        # a tile of the line starts past y_clip + A: every rank sends its
+        # column nearest y_clip, and the owner's is taken
+        parts = band.new_empty((ya.size * 4, band.shape[1]))
+        dist.all_gather_into_tensor(
+            parts, band[:, :, min(max(y_clip - first, 0), nb - 1)]
+            .contiguous(), group=ya.group)
+        col = parts.view(ya.size, 4, -1)[(y_clip - 1) // cols]
+    elif y_clip - first < nb:
+        col = band[:, :, y_clip - first]
+    else:
+        return band.contiguous()
+    past = torch.arange(nb, device=band.device) + first > y_clip
+    return torch.where(past, col[:, :, None], band).contiguous()
+
+
 def _own(lanes: torch.Tensor, in_core: torch.Tensor) -> torch.Tensor:
     """Gathered [F, k] lanes, -0.0 where another shard owns the lane (the
     gather read a clamped row there): the identity of f32 addition, so a
@@ -152,18 +237,22 @@ def _own(lanes: torch.Tensor, in_core: torch.Tensor) -> torch.Tensor:
     return torch.where(in_core, lanes, -0.0)
 
 
-def _local_fit(chain, center, cfg, row0, fold_center=True):
-    """The plane fit of one shard's band (kernel 1 or 2 in halo mode) and
-    its trig tail: (vx, vy, gate, length) maps of the core rows."""
+def _local_fit(chain, center, cfg, row0, fold_center=True, col0=None):
+    """The plane fit of one shard's band (kernel 1 or 2 in halo mode, or
+    with a tile's first column `col0` in tile mode) and its trig tail:
+    (vx, vy, gate, length) maps of the core cells."""
+    R = cfg.support_radius
     acc, a, b, dtdp, _ = kernels.local_flow(
-        chain, center, cfg, fold_center=fold_center,
-        halo=cfg.support_radius, row_offset=row0)
+        chain, center, cfg, fold_center=fold_center, halo=R,
+        row_offset=row0, col_halo=0 if col0 is None else R,
+        col_offset=col0 or 0)
     vx, vy, gate, length, _ = trig_tail(acc, a, b, dtdp)
     return vx, vy, gate, length
 
 
 def _corr_assemble(cfg: FlowConfig, chain_ext, t_c2, loc_maps, ap_tables,
-                   rows, row0, lx, ys, in_core, cflag, grp, lane, head):
+                   rows, row0, lx, ys, in_core, cflag, grp, lane, head,
+                   col0=None):
     """Sharded rank-2 correction pass + merged-table lane assembly.
 
     The shard-local form of micro_step's correction (JAX:
@@ -174,16 +263,22 @@ def _corr_assemble(cfg: FlowConfig, chain_ext, t_c2, loc_maps, ap_tables,
     table (`grp`), or the correction table where flagged, and its
     true-flow rows from its aperture pass's table (`lane`, the lanes'
     indices among the step's `head`). Off-shard lanes read a clamped row
-    and are zeroed. Returns the [5, k] f32 lane stack of the k lanes.
+    and are zeroed. In tile mode (`col0`: the tile's first column) the
+    center surface is the tile's cells and `ys` its local columns,
+    clamped. Returns the [5, k] f32 lane stack of the k lanes.
     """
     R = cfg.support_radius
-    Ha = cfg.array_height
+    cols = t_c2.shape[1]
+    # the center is read at the core cells only (correction mode does not
+    # fold it): its halos are zeros
+    ch = 0 if col0 is None else R
     vx2, vy2, gate2, _ = _local_fit(torch.stack(chain_ext),
-                                    F.pad(t_c2, (0, 0, R, R)), cfg, row0,
-                                    fold_center=False)
+                                    F.pad(t_c2, (ch, ch, R, R)), cfg, row0,
+                                    fold_center=False, col0=col0)
     loc_all = loc_maps + [_lane_table(vx2, vy2, gate2, cfg, packed=False)]
-    RH = rows * Ha
-    pix = lx.clamp(0, rows - 1).to(torch.int64) * Ha + ys.to(torch.int64)
+    RH = rows * cols
+    pix = (lx.clamp(0, rows - 1).to(torch.int64) * cols
+           + ys.clamp(0, cols - 1).to(torch.int64))
     table = torch.where(cflag, len(loc_all) - 1, grp)
     loc = _own(_take(loc_all, table * RH + pix), in_core)
     tf = _own(_take(ap_tables, lane // (head // len(ap_tables)) * RH + pix),
@@ -193,10 +288,14 @@ def _corr_assemble(cfg: FlowConfig, chain_ext, t_c2, loc_maps, ap_tables,
 
 def _step(state: SurfaceState, x, y, t, is_winner, cfg: FlowConfig,
           band: mesh.Axis, cflag=None, t_c2=None, bs: int = 0,
-          lanes: tuple[int, int] | None = None):
+          lanes: tuple[int, int] | None = None,
+          tile: mesh.TileMesh | None = None):
     """One micro-step of one shard on its band group (JAX:
     halo_micro_step :374 with bs = 0, halo_micro_step_sharded :201 with
-    bs > 0).
+    bs > 0), or with `tile` of one tile of a (tx, ty) grid (band: the
+    tile's x line; parallel/tiling.py, JAX's spatial engine): every halo
+    in both axes, each kernel in tile mode, bs = 0, and the lanes summed
+    over the whole grid.
 
     x, y, t, is_winner are the step's lanes (int32, bool), cflag the
     corrected-lane flags (bool) when `t_c2` (this shard's rows of the
@@ -210,12 +309,15 @@ def _step(state: SurfaceState, x, y, t, is_winner, cfg: FlowConfig,
       stamps for the staleness kill; no sum, the lanes stay on their rank.
     Returns the new state and the wire pair (int32 [C, k], uint8 [k]).
     """
-    n = band.size
-    rows = cfg.array_width // n
-    Ha = cfg.array_height
+    rows = cfg.array_width // band.size
     row0 = band.index * rows
     R = cfg.support_radius
     A = cfg.max_window + 1
+    if tile is None:
+        cols, col0, summed = cfg.array_height, None, band
+    else:
+        cols = cfg.array_height // tile.ty
+        col0, summed = tile.y.index * cols, tile.grid
     corr = t_c2 is not None
     if bs:
         P, S = cfg.sub_phases, cfg.causal_snapshots
@@ -242,20 +344,32 @@ def _step(state: SurfaceState, x, y, t, is_winner, cfg: FlowConfig,
     t_surf, epoch = state.t_surf, state.epoch
     flow_len, flow_vx, flow_vy = state.flow_len, state.flow_vx, state.flow_vy
     lx = x - row0
-    in_core = (lx >= 0) & (lx < rows)
+    ly = y if col0 is None else y - col0
+    in_core = (lx >= 0) & (lx < rows) & (ly >= 0) & (ly < cols)
     # local flat pixel per lane; non-winners and lanes of other shards go
-    # to the spare cell rows*Ha of the scatter buffers
-    pix = lx.to(torch.int64) * Ha + y.to(torch.int64)
-    wpix = torch.where(is_winner & in_core, pix, rows * Ha)
+    # to the spare cell rows*cols of the scatter buffers
+    pix = lx.to(torch.int64) * cols + ly.to(torch.int64)
+    wpix = torch.where(is_winner & in_core, pix, rows * cols)
     t1 = t + 1
     safe_lx = lx.clamp(0, rows - 1)
+    safe_ly = ly.clamp(0, cols - 1)
+
+    def ext(surf):
+        """A surface with its R-deep halo: rows, then (tiles) columns."""
+        surf = exchange_halo(surf, R, band)
+        return surf if tile is None else exchange_halo(surf, R, tile.y,
+                                                       dim=-1)
+
+    def core(surf_ext):
+        return surf_ext[R:R + rows, R:R + cols] if tile else (
+            surf_ext[R:R + rows])
 
     # ---- pass 1: scatters and every time-surface band exchange, before
     # any stencil compute (the JAX package's order, which lets XLA overlap
     # phase p+1's exchange with phase p's compute). A phase's pre-scatter
     # band is the previous phase's post band: one exchange per sub-group.
     phases = []
-    pre_ext = exchange_halo(t_surf, R, band)
+    pre_ext = ext(t_surf)
     chain_ext = [pre_ext] if corr else None
     for p in range(P):
         ep_val = state.step * P + p
@@ -265,10 +379,10 @@ def _step(state: SurfaceState, x, y, t, is_winner, cfg: FlowConfig,
             t_surf = _scatter(t_surf, wpix[ssl], t1[ssl])
             epoch = _scatter(epoch, wpix[ssl], ep_val)
             if si < S - 1:
-                mids.append(exchange_halo(t_surf, R, band))
+                mids.append(ext(t_surf))
                 if corr and si in links:
                     chain_ext.append(mids[-1])
-        post_ext = exchange_halo(t_surf, R, band)
+        post_ext = ext(t_surf)
         if corr:                        # the last sub-group always links
             chain_ext.append(post_ext)
         phases.append((epoch == ep_val, pre_ext, mids, post_ext))
@@ -282,10 +396,9 @@ def _step(state: SurfaceState, x, y, t, is_winner, cfg: FlowConfig,
         # staleness kill at aperture-group cadence, against the phase's
         # pre-scatter surface: the core rows of its pre band
         if not coarse or p % (P // coarse) == 0:
-            flow_len = kill_stale_flow(flow_len, pre_ext[R:R + rows], t0s[p],
-                                       cfg)
+            flow_len = kill_stale_flow(flow_len, core(pre_ext), t0s[p], cfg)
         vx_map, vy_map, gate_map, len_map = _local_fit(
-            torch.stack([pre_ext, *mids]), post_ext, cfg, row0)
+            torch.stack([pre_ext, *mids]), post_ext, cfg, row0, col0=col0)
         flow_len = torch.where(
             written, torch.where(gate_map, len_map, 0.0), flow_len)
         flow_vx = torch.where(
@@ -299,7 +412,7 @@ def _step(state: SurfaceState, x, y, t, is_winner, cfg: FlowConfig,
         elif coarse and lsl:
             # this group's plane-fit lanes wait for their pooling pass
             pending.append((lsl, _own(onehot_gather(
-                loc, safe_lx[lsl], y[lsl], rows, Ha), in_core[lsl])))
+                loc, safe_lx[lsl], safe_ly[lsl], rows, cols), in_core[lsl])))
         if coarse and (p + 1) % (P // coarse):
             continue
         for g in range(kf):
@@ -307,11 +420,16 @@ def _step(state: SurfaceState, x, y, t, is_winner, cfg: FlowConfig,
                 # fine phasing: the in-phase kill against the phase's
                 # post-scatter surface, the core rows of its post band
                 flow_len = kill_stale_flow_in_phase(
-                    flow_len, post_ext[R:R + rows], t[p * seg + g * mg], cfg)
-            integ = assemble_integral_band(flow_len, flow_vx, flow_vy, band,
-                                           A)
+                    flow_len, core(post_ext), t[p * seg + g * mg], cfg)
+            if tile is None:
+                integ = assemble_integral_band(flow_len, flow_vx, flow_vy,
+                                               band, A)
+            else:
+                integ = assemble_integral_tile(flow_len, flow_vx, flow_vy,
+                                               tile, A, aperture_y_clip(cfg))
             tvx_map, tvy_map, scale_map = kernels.aperture(
-                flow_len, flow_vx, flow_vy, cfg, halo=A, integ=integ)
+                flow_len, flow_vx, flow_vy, cfg, halo=A, integ=integ,
+                col_halo=0 if tile is None else A)
             if corr:
                 ap_tables.append(_lane_table(tvx_map, tvy_map, scale_map,
                                              cfg, packed=False))
@@ -320,8 +438,9 @@ def _step(state: SurfaceState, x, y, t, is_winner, cfg: FlowConfig,
                 amaps = _lane_table(tvx_map, tvy_map, scale_map, cfg,
                                     packed=False)
                 for gsl, gloc in pending:
-                    tf = _own(onehot_gather(amaps, safe_lx[gsl], y[gsl],
-                                            rows, Ha), in_core[gsl])
+                    tf = _own(onehot_gather(amaps, safe_lx[gsl],
+                                            safe_ly[gsl], rows, cols),
+                              in_core[gsl])
                     lanes_out.append(_merge_lanes(gloc, tf, cfg,
                                                   packed=False))
                 pending = []
@@ -335,17 +454,19 @@ def _step(state: SurfaceState, x, y, t, is_winner, cfg: FlowConfig,
                 maps = wire_maps(gate_map, vx_map, vy_map, tvx_map, tvy_map,
                                  scale_map, cfg, packed=False)
                 lanes_out.append(_own(onehot_gather(
-                    maps, safe_lx[gsl], y[gsl], rows, Ha), in_core[gsl]))
+                    maps, safe_lx[gsl], safe_ly[gsl], rows, cols),
+                    in_core[gsl]))
 
     if corr:
         lane = torch.arange(lo, hi, device=x.device)
         out_lanes = _corr_assemble(cfg, chain_ext, t_c2, loc_maps, ap_tables,
-                                   rows, row0, lx[lo:hi], y[lo:hi],
+                                   rows, row0, lx[lo:hi], ly[lo:hi],
                                    in_core[lo:hi], cflag[lo:hi],
-                                   lane // seg, lane, head)
+                                   lane // seg, lane, head, col0)
     else:
         out_lanes = torch.cat(lanes_out, 1)
     k = hi - lo
+    n = summed.size
     if not bs and n > 1:
         # one non-zero (NaN-scrubbed) contribution per lane: the sum is
         # exact. A reduce-scatter leaves each rank its 1/n of the lanes;
@@ -353,10 +474,10 @@ def _step(state: SurfaceState, x, y, t, is_winner, cfg: FlowConfig,
         if k % n == 0:
             part = out_lanes.new_empty((k // n, 5))
             dist.reduce_scatter_tensor(part, out_lanes.t().contiguous(),
-                                       group=band.group)
+                                       group=summed.group)
             out_lanes = part.t()
         else:
-            dist.all_reduce(out_lanes, group=band.group)
+            dist.all_reduce(out_lanes, group=summed.group)
     out = wire_pack(out_lanes[0], out_lanes[1], out_lanes[2], out_lanes[3],
                     out_lanes[4], cfg)
     return SurfaceState(t_surf, epoch, flow_len, flow_vx, flow_vy,
@@ -384,6 +505,19 @@ def gather_lanes(main: torch.Tensor, aux: torch.Tensor, axis: mesh.Axis,
             return None
     block = torch.cat(parts, 2).cpu().numpy()
     return block[:, :-1], block[:, -1].astype(np.uint8)
+
+
+def gather_summed(main: torch.Tensor, aux: torch.Tensor, axis: mesh.Axis,
+                  m: int):
+    """One call's whole wire block of `_step`'s replicated lanes (bs = 0,
+    m a step, summed over `axis`) on the axis's first rank (host arrays),
+    None elsewhere: the ranks' reduce-scatter slices end to end in rank
+    order, or the first rank's own lanes where the all-reduce left every
+    rank all of them (the axis does not divide m)."""
+    if m % axis.size:
+        return None if axis.index else (main.cpu().numpy(),
+                                        aux.cpu().numpy())
+    return gather_lanes(main, aux, axis)
 
 
 def band_of(state: SurfaceState, band: mesh.Axis,
@@ -610,14 +744,12 @@ class HaloFlowEngine(FlowEngine):
     def _gather(self, main: torch.Tensor, aux: torch.Tensor, sharded: bool):
         """One call's wire block on rank 0 (host arrays), None elsewhere.
 
-        Each rank holds its lanes of every step: its reduce-scatter slice
-        or its owner-sharded segments, in rank order along the lane axis;
-        after an all-reduce (n does not divide m) every rank holds all."""
-        if not sharded and self.cfg.chunk_size % self.n_shards:
-            if self.rank:
-                return None
-            return main.cpu().numpy(), aux.cpu().numpy()
-        return gather_lanes(main, aux, self.band)
+        Each rank holds its lanes of every step: its owner-sharded
+        segments, in rank order along the lane axis, or the replicated
+        layout's summed lanes (gather_summed)."""
+        if sharded:
+            return gather_lanes(main, aux, self.band)
+        return gather_summed(main, aux, self.band, self.cfg.chunk_size)
 
     def _unpack(self, blocks, ev: EventBatch, nn: int, perm) -> FlowOutput:
         """Stream-order wire blocks from the gathered ones (JAX:

@@ -12,8 +12,9 @@ program, a torch run is one process per rank in one process group.
 - `rank_and_size` tells the code in a rank where it is, and
   `make_global_mesh` lays the ranks out as a (tx, ev) grid: `tx` shards
   the sensor rows (parallel/halo.py), `ev` the lanes of a micro-batch
-  (parallel/dp.py); `Axis` is one line of that grid and its process
-  group.
+  (parallel/dp.py); `make_spatial_mesh_2d` lays them out as a (tx, ty)
+  grid of sensor tiles (parallel/tiling.py); `Axis` is one line of a
+  grid and its process group.
 
 A run of one rank stays in the calling process and has no process group
 at all: the one-rank branches issue no collective.
@@ -145,7 +146,7 @@ def make_global_mesh(tx: int | None = None, ev: int | None = None) -> Mesh:
     grid, on every rank, in one fixed order (torch.distributed requires
     it).
     """
-    rank, world = rank_and_size()
+    world = rank_and_size()[1]
     if tx is None:
         tx = max(1, int(os.environ.get("LOCAL_WORLD_SIZE", world)))
         while world % tx:
@@ -154,16 +155,64 @@ def make_global_mesh(tx: int | None = None, ev: int | None = None) -> Mesh:
         ev = world // tx
     if tx < 1 or ev < 1 or tx * ev != world:
         raise ValueError(f"mesh {tx}x{ev} != {world} ranks")
-    bands = [tuple(j * tx + i for i in range(tx)) for j in range(ev)]
-    events = [tuple(j * tx + i for j in range(ev)) for i in range(tx)]
+    return Mesh(tx, ev, *_grid_lines(tx, ev))
+
+
+def _grid_lines(n1: int, n2: int) -> tuple[Axis, Axis]:
+    """This rank's two lines through an (n1, n2) grid of the world's
+    ranks, global rank r at (r % n1, r // n1): the n1 consecutive ranks
+    that share its second index, and the n2 that share its first. Creates
+    the process group of every line of the grid, on every rank, in one
+    fixed order (torch.distributed requires it)."""
+    rank, world = rank_and_size()
+    firsts = [tuple(j * n1 + i for i in range(n1)) for j in range(n2)]
+    seconds = [tuple(j * n1 + i for j in range(n2)) for i in range(n1)]
     groups = {}
-    for line in bands + events:
+    for line in firsts + seconds:
         # the whole world and single ranks need no group of their own
         if 1 < len(line) < world:
             groups[line] = dist.new_group(list(line))
-    band, event = bands[rank // tx], events[rank % tx]
-    return Mesh(tx, ev, Axis(band, rank % tx, groups.get(band)),
-                Axis(event, rank // tx, groups.get(event)))
+    first, second = firsts[rank // n1], seconds[rank % n1]
+    return (Axis(first, rank % n1, groups.get(first)),
+            Axis(second, rank // n1, groups.get(second)))
+
+
+@dataclasses.dataclass(frozen=True)
+class TileMesh:
+    """The (tx, ty) grid of the spatial engine's ranks (JAX: the ('tx',
+    'ty') mesh of farms_tpu/parallel/tiling.py:47), laid out as
+    make_global_mesh lays out (tx, ev): global rank r holds tile (i, j) =
+    (r % tx, r // tx), row block i and column block j of every surface.
+    `x` is its line along tx (the ranks that hold its columns and split
+    the rows), `y` its line along ty (the ranks that hold its rows and
+    split the columns), `grid` every rank of the grid."""
+
+    tx: int
+    ty: int
+    x: Axis
+    y: Axis
+    grid: Axis
+
+
+def make_spatial_mesh_2d(tx: int, ty: int) -> TileMesh:
+    """This rank's place in a (tx, ty) grid of the world's ranks; raises
+    ValueError where tx * ty is not the world. Every rank calls it, in the
+    same order relative to its other collectives (it creates the lines'
+    process groups)."""
+    world = rank_and_size()[1]
+    if tx < 1 or ty < 1 or tx * ty != world:
+        raise ValueError(f"need {tx * ty} devices, have {world}")
+    return TileMesh(tx, ty, *_grid_lines(tx, ty), Axis.world())
+
+
+def make_spatial_mesh(num_devices: int | None = None) -> TileMesh:
+    """The (N, 1) grid of x tiles over the world's N ranks; num_devices,
+    where given, must be N."""
+    world = rank_and_size()[1]
+    if num_devices is not None and num_devices != world:
+        raise ValueError(f"requested {num_devices} ranks, the world has "
+                         f"{world}")
+    return make_spatial_mesh_2d(world, 1)
 
 
 def make_event_mesh(num_devices: int | None = None) -> Mesh:

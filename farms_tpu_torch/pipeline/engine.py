@@ -912,14 +912,14 @@ class FlowEngine:
     # ---- processing --------------------------------------------------------
     def device_calls(self, ev: EventBatch, steps_per_call: int | None = None,
                      derived_written: bool = True, center_rows=slice(None),
-                     rows5: bool = False):
+                     rows5: bool = False, center_cols=slice(None)):
         """Pack a stream (len(ev) > 0) and yield each call's micro_step
         batch dict on the device, in order; each call's escapes and
         center surfaces travel with its own batch. `derived_written`
         False skips pack_wesc (a step that always scatters the epoch);
-        `center_rows` are the rows of the center surfaces a rank
-        uploads; `rows5` packs the explicit 5-row layout instead of the
-        delta-coded words (pack2)."""
+        `center_rows` and `center_cols` are the cells of the center
+        surfaces a rank uploads; `rows5` packs the explicit 5-row layout
+        instead of the delta-coded words (pack2)."""
         if rows5:
             packed, _ = self.pack(ev, steps_per_call=steps_per_call)
             aux2 = None
@@ -942,7 +942,8 @@ class FlowEngine:
             if r2 is not None:
                 chunk["r2f"] = torch.from_numpy(r2[0][c]).to(dev)
                 chunk["r2c"] = torch.from_numpy(np.ascontiguousarray(
-                    self.array_centers(r2[1][c])[:, center_rows])).to(dev)
+                    self.array_centers(r2[1][c])[:, center_rows,
+                                                 center_cols])).to(dev)
             yield chunk
 
     def _run_call(self, chunk: dict):

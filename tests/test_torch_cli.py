@@ -103,15 +103,15 @@ def test_fidelity_modes_run(tmp_path, capsys, flags):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--engine", "spatial"],
     ["--SERIAL", "1", "--engine", "halo", "--devices", "2"],
     ["--SERIAL", "1", "--engine", "dp", "--devices", "2"],
     ["--SERIAL", "1", "--devices", "2"],
     ["--SERIAL", "1", "--engine", "multihost", "--devices", "4"],
 ])
 def test_unported_modes_raise(tmp_path, flags):
-    """Still refused: spatial tiling (not ported) and --SERIAL 1 on more
-    than one rank, for every engine."""
+    """Still refused: --SERIAL 1 on more than one rank, for every engine
+    (spatial tiling, refused until it was ported, runs in
+    test_sharded_engines_write_the_single_engines_file)."""
     _, base = _events_file(tmp_path, "x", n=10)
     with pytest.raises(NotImplementedError):
         tcli.main(["--filename", base, "--width", "64", "--height", "64",
@@ -148,13 +148,17 @@ def single_file(tmp_path_factory):
     ["--engine", "single", "--devices", "2"],
     ["--engine", "multihost", "--devices", "2"],
     ["--engine", "multihost", "--devices", "1"],
+    # refused before the spatial engine was ported (tests/test_cli.py:92)
+    ["--engine", "spatial", "--devices", "2"],
+    ["--engine", "spatial"],
 ])
 def test_sharded_engines_write_the_single_engines_file(single_file, capfd,
                                                        flags):
-    """dp (also --engine single with --devices > 1), multihost and
-    --multihost without a launcher (a world of one) write the single
-    engine's file byte for byte on gloo ranks; --devices 0 on the CPU is
-    one rank; rank 0 alone prints."""
+    """dp (also --engine single with --devices > 1), multihost, spatial
+    (x tiles over 2 ranks, each with both column halos) and --multihost
+    without a launcher (a world of one) write the single engine's file
+    byte for byte on gloo ranks; --devices 0 on the CPU is one rank; rank
+    0 alone prints."""
     base, want = single_file
     capfd.readouterr()
     assert tcli.main(["--filename", base, *_POINT, "--device", "cpu",
@@ -165,8 +169,8 @@ def test_sharded_engines_write_the_single_engines_file(single_file, capfd,
 
 
 def test_devices_zero_counts_the_cards(monkeypatch):
-    """--devices 0 is every visible card on cuda (for dp, halo and
-    multihost) and one rank on the CPU; the single engine stays one
+    """--devices 0 is every visible card on cuda (for dp, halo, multihost
+    and spatial) and one rank on the CPU; the single engine stays one
     rank."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     p = tcli.build_parser()
@@ -174,7 +178,7 @@ def test_devices_zero_counts_the_cards(monkeypatch):
     def ranks(*flags):
         return tcli._spawned_ranks(p.parse_args(["--filename", "f", *flags]))
 
-    for engine in ("dp", "halo", "multihost"):
+    for engine in ("dp", "halo", "multihost", "spatial"):
         assert ranks("--engine", engine) == 4
         assert ranks("--engine", engine, "--device", "cpu") == 1
         assert ranks("--engine", engine, "--devices", "2") == 2

@@ -472,6 +472,138 @@ def test_cuda_aperture_band_matches_plain(cuda):
                     n, i, name)
 
 
+def _tile(arr, tile, h):
+    """A tile (row0, rows, col0, cols) of a [..., W, H] array with h cells
+    more on each side in both axes, zero past the sensor edge (the halos
+    the spatial engine exchanges)."""
+    r0, rows, c0, cols = tile
+    pad = [(0, 0)] * (arr.ndim - 2) + [(h, h), (h, h)]
+    return np.ascontiguousarray(
+        np.pad(arr, pad)[..., r0:r0 + rows + 2 * h, c0:c0 + cols + 2 * h])
+
+
+def _tiles(W, H, shape):
+    """(row0, rows, col0, cols) of each tile of a (tx, ty) grid."""
+    tx, ty = shape
+    rows, cols = W // tx, H // ty
+    return [((r % tx) * rows, rows, (r // tx) * cols, cols)
+            for r in range(tx * ty)]
+
+
+# (W, H, grid shape) of the tile-mode cases: the 320 x 320 sensor in (2,
+# 2) and (4, 2) tiles, and 260 x 346 in (1, 4), padded to 260 x 348 as
+# the spatial engine pads it
+TILE_GEOMS = ((320, 320, (2, 2)), (320, 320, (4, 2)), (260, 346, (1, 4)))
+
+
+def _padded(arr, cfg):
+    """A [..., W, H] array at cfg's array geometry (pad cells 0)."""
+    pad = [(0, 0)] * (arr.ndim - 2) + [(0, cfg.array_width - cfg.width),
+                                       (0, cfg.array_height - cfg.height)]
+    return np.ascontiguousarray(np.pad(arr, pad))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, n_chain, fold_center", [
+    (3, 1, True), (5, 8, True), (3, 3, False), (5, 3, False), (7, 1, True),
+    (7, 3, False), (11, 3, False)])
+def test_cuda_tile_local_flow_matches_plain(cuda, k, n_chain, fold_center):
+    """Tile mode (both halos, both offsets) on the tiles of TILE_GEOMS:
+    bitwise equal to the plain tile mode and to the whole-sensor kernel's
+    cells."""
+    name = "local_flow" if k in (3, 5) else "local_flow_general"
+    for W, H, shape in TILE_GEOMS:
+        cfg = TConfig(width=W, height=H, filter_size=k).padded_to(*shape)
+        R = cfg.support_radius
+        chain, center = _chain(W, H, seed=40 + k, n=n_chain)
+        if fold_center:
+            center = np.where(np.arange(W)[:, None] % 3 == 0,
+                              chain[-1].view(np.uint32) + np.uint32(700),
+                              chain[-1].view(np.uint32)).view(np.int32)
+        chain, center = _padded(chain, cfg), _padded(center, cfg)
+        whole = tk.local_flow(torch.from_numpy(chain).to(cuda),
+                              torch.from_numpy(center).to(cuda), cfg,
+                              fold_center=fold_center)
+        for tile in _tiles(cfg.array_width, cfg.array_height, shape):
+            r0, rows, c0, cols = tile
+            ch = torch.from_numpy(_tile(chain, tile, R)).to(cuda)
+            ce = torch.from_numpy(_tile(center, tile, R)).to(cuda)
+            kw = dict(fold_center=fold_center, halo=R, row_offset=r0,
+                      col_halo=R, col_offset=c0)
+            tk.reset_launches()
+            got = tk.local_flow(ch, ce, cfg, **kw)
+            assert tk.LAUNCHES[name] == 1
+            want = tdf.local_flow_core(ch, ce, cfg, **kw)
+            for label, g, w, o in zip(["accept", "a", "b", "dtdp", "cand"],
+                                      got, want, whole):
+                assert _bits_equal(g, w), (W, shape, tile, label)
+                assert _bits_equal(
+                    g, o[r0:r0 + rows, c0:c0 + cols].contiguous()), (
+                    W, shape, tile, label)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quirk", [False, True])
+def test_cuda_tile_aperture_matches_plain(cuda, quirk):
+    """The pool in tile mode on the tiles of TILE_GEOMS, each band cut
+    from the whole float64 integral and pre-clamped in y (tile_band; with
+    the quirk at 260 x 346 the clamp is column 260, inside the last tile's
+    band): bitwise equal to the plain tile mode and to the whole-sensor
+    pool's cells."""
+    for W, H, shape in TILE_GEOMS:
+        cfg = TConfig(width=W, height=H,
+                      replicate_y_clamp_quirk=quirk).padded_to(*shape)
+        A = cfg.max_window + 1
+        yc = tdf.aperture_y_clip(cfg)
+        ins = [torch.from_numpy(_padded(a, cfg)).to(cuda)
+               for a in _flow_fields(W, H, 5 + W)]
+        whole = tk.aperture(*ins, cfg)
+        integ = tdf.build_integral(*ins)
+        for tile in _tiles(cfg.array_width, cfg.array_height, shape):
+            r0, rows, c0, cols = tile
+            band = tdf.tile_band(integ, r0, rows, c0, cols, A, yc)
+            core = [a[r0:r0 + rows, c0:c0 + cols].contiguous() for a in ins]
+            kw = dict(halo=A, col_halo=A, integ=band)
+            tk.reset_launches()
+            got = tk.aperture(*core, cfg, **kw)
+            assert tk.LAUNCHES["aperture"] == 1
+            want = tdf.dense_aperture(*core, cfg, **kw)
+            for name, g, w, o in zip(["tvx", "tvy", "scale"], got, want,
+                                     whole):
+                assert _bits_equal(g, w), (W, shape, tile, name)
+                assert _bits_equal(
+                    g, o[r0:r0 + rows, c0:c0 + cols].contiguous()), (
+                    W, shape, tile, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("correction", [0, 32])
+def test_cuda_one_rank_spatial_engine_equals_single_engine(cuda, correction):
+    """The spatial engine on one card (no process group, both column
+    halos zero-filled) runs the tile mode of every kernel and gives the
+    single engine's outputs bitwise."""
+    from farms_tpu_torch.events.io import synthetic_translating_bar
+    from farms_tpu_torch.parallel.tiling import SpatialFlowEngine
+    from farms_tpu_torch.pipeline.engine import FlowEngine
+
+    cfg = TConfig(width=64, height=48, chunk_size=128, steps_per_scan=2,
+                  max_window=10, window_jump=5, sub_phases=4,
+                  aperture_sub_phases=2, causal_snapshots=2,
+                  center_correction=correction, wire="f16")
+    ev = synthetic_translating_bar(width=64, height=48, bar_len=16,
+                                   duration_us=15000, jitter_us=10, seed=4)
+    ev.y[:] = np.clip(ev.y, 0, 47)
+    ref = FlowEngine(cfg, device=cuda).process(ev)
+    tk.reset_launches()
+    got = SpatialFlowEngine(cfg, device=cuda).process(ev)
+    assert tk.LAUNCHES["local_flow"] > 0 and tk.LAUNCHES["aperture"] > 0
+    assert (ref.r_local > 0).sum() > 40
+    for col in ("vx", "vy", "r_local", "theta_local", "r_true", "theta_true",
+                "scale"):
+        np.testing.assert_array_equal(getattr(got, col), getattr(ref, col),
+                                      err_msg=col)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("correction", [0, 32])
 def test_cuda_one_rank_halo_engine_equals_single_engine(cuda, correction):

@@ -287,9 +287,10 @@ def test_halo_checkpoint_resumes(halo_checkpoints, direction, monkeypatch):
 
 
 def test_port_modules_import_no_jax():
-    """What a spawned rank imports (the CLI, the halo engine, the launcher)
-    pulls in neither jax nor farms_tpu."""
-    code = ("import sys, farms_tpu_torch.cli, farms_tpu_torch.parallel.halo; "
+    """What a spawned rank imports (the CLI, the halo and spatial engines,
+    the launcher) pulls in neither jax nor farms_tpu."""
+    code = ("import sys, farms_tpu_torch.cli, farms_tpu_torch.parallel.halo, "
+            "farms_tpu_torch.parallel.tiling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'farms_tpu')]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
