@@ -25,10 +25,16 @@ Phases, each printed with its result and seconds:
    at k = 7 on the 260 x 346 geometry, and at a run-time radius, k = 11
    on 9 surfaces (5 slabs of support rows) and k = 21 in correction mode
    on 3 (14 slabs; the plain version timed on 3 calls), each case with
-   the shape the library reports; the float64 integral kernel
-   against the plain integral (also on the CPU), with the cells where
-   CUDA's own innermost-dimension cumsum departs from the sequential order;
-   the aperture pass (integral and pool; the pool's own device time,
+   the shape the library reports; the card's float64 add latency (one
+   thread's chain of adds, clock64) and the float64 integral kernel
+   against the plain integral, bit for bit on the card and on the CPU, at
+   every shape its callers pass (INTEGRAL_SHAPES: 320 x 320, 260 x 346,
+   1280 x 720, an 80-row band, tiles of 160 x 160, 80 x 160 and 260 x 87,
+   1 x 17 and 33 x 1), one launch and one device kernel a call, with the
+   cells where CUDA's own innermost-dimension cumsum departs from the
+   sequential order and, at the first five, the device time beside the
+   bytes bound and the chain bound; the aperture pass (integral and
+   pool; the pool's own device time,
    bound and share beside it, and the L2 bytes its design reads a pass)
    with 11 scales and once at 260 x 346 with the y-clamp quirk;
 3. the kernels' halo modes (the row shards of the halo engine,
@@ -133,7 +139,10 @@ The line before the last is the card's nvidia-smi name and power limit;
 the one before it a JSON summary of the kernels, with each kernel's bound
 (the larger of the bytes it must move over 3.35 TB/s and its operations
 over 67 TFLOP/s in f32 and 34 TFLOP/s in f64, the H100 SXM's data-sheet
-peaks) and its share (bound over device time) for its whole-sensor case,
+peaks; the integral's also its chain bound, `chain_bound_ms`: rows +
+cols dependent float64 adds at the measured add latency and the SM
+clock's maximum) and its share (the larger bound over device time) for
+its whole-sensor case,
 (`halo_*`) for one 80-row band and (`halo1_*`) for the one band of 320
 rows, and (`tile_*`) for one 160 x 160 tile of (2, 2); the aperture
 entry adds the pool's own bound (`pool_bound_ms`: the
@@ -194,6 +203,41 @@ TILE_GRIDS = ((SENSOR, SENSOR, ((2, 2), (4, 2))), (260, 346, ((1, 4),)))
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_F64 = 34e12
+# the shapes the integral's callers pass: the sensor, the quirk geometry,
+# harness config 5's sensor, an 80-row band of 320 (4 shards), spatial
+# tiles of (2, 2), (4, 2) and (1, 4) at 260 x 348, one row and one
+# column; the first INTEGRAL_TIMED are timed
+INTEGRAL_SHAPES = ((SENSOR, SENSOR), (260, 346), (1280, 720), (80, SENSOR),
+                   (160, 160), (80, 160), (260, 87), (1, 17), (33, 1))
+INTEGRAL_TIMED = 5
+
+# One thread: a chain of 64 * n dependent float64 adds between two
+# clock64() reads. The adds cannot be reassociated (no fast math), so the
+# cycles grow by one add latency per add; the latency is the difference
+# of two chain lengths over the difference of their adds.
+_DADD_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void dadd_chain(const double* x, int n, double* out,
+                           long long* cycles) {
+  double a = x[0];
+  const double b = x[1];
+  const long long t0 = clock64();
+  for (int i = 0; i < n; ++i) {
+#pragma unroll
+    for (int u = 0; u < 64; ++u) a = a + b;
+  }
+  const long long t1 = clock64();
+  out[0] = a;
+  cycles[0] = t1 - t0;
+}
+extern "C" int farms_dadd_chain(const void* x, int n, void* out,
+                                void* cycles) {
+  dadd_chain<<<1, 1>>>(static_cast<const double*>(x), n,
+                       static_cast<double*>(out),
+                       static_cast<long long*>(cycles));
+  return (int)cudaGetLastError();
+}
+"""
 
 
 def _nvidia_smi() -> str:
@@ -201,6 +245,53 @@ def _nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+def _dadd_latency() -> dict:
+    """The card's float64 add latency in SM cycles (median of 5 runs of
+    chains of 64 * 100 and 64 * 1100 adds, compiled from _DADD_SRC into
+    farms_tpu_torch/_build) and the SM clock's maximum (MHz, nvidia-smi):
+    (rows + cols) adds at that latency and clock are the integral's chain
+    bound."""
+    import ctypes
+    import hashlib
+
+    import torch
+    from farms_tpu_torch.ops import _build
+    tag = hashlib.sha256(_DADD_SRC.encode()).hexdigest()[:12]
+    lib_path = _build.BUILD_DIR / f"libdadd_{tag}.so"
+    if not lib_path.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = _build.BUILD_DIR / f"dadd_{tag}.cu"
+        src.write_text(_DADD_SRC)
+        subprocess.run([_build._nvcc(), "-gencode",
+                        "arch=compute_90a,code=sm_90a", "-O3", "-shared",
+                        "-Xcompiler", "-fPIC", "-o", str(lib_path),
+                        str(src)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.farms_dadd_chain.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                     ctypes.c_void_p, ctypes.c_void_p]
+    lib.farms_dadd_chain.restype = ctypes.c_int
+    x = torch.tensor([1.0, 1e-3], dtype=torch.float64, device="cuda")
+    out = torch.empty(1, dtype=torch.float64, device="cuda")
+    cycles = torch.empty(1, dtype=torch.int64, device="cuda")
+
+    def run(n):
+        rc = lib.farms_dadd_chain(x.data_ptr(), n, out.data_ptr(),
+                                  cycles.data_ptr())
+        if rc:
+            raise RuntimeError(f"dadd_chain launch failed: cudaError_t {rc}")
+        torch.cuda.synchronize()
+        return int(cycles.item())
+
+    run(100)
+    lat = [(run(1100) - run(100)) / (64 * 1000) for _ in range(5)]
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True,
+                         check=True).stdout.split()[0]
+    return {"dadd_latency_cycles": float(np.median(lat)),
+            "dadd_latency_runs": lat, "sm_clock_max_mhz": float(clk)}
 
 
 def _phase(name: str, t0: float, result: str) -> None:
@@ -261,10 +352,12 @@ def _fmt_ms(ms) -> str:
 
 
 def _share(r: dict, prefix: str = ""):
-    """Bound over device time of a result entry (None where the device
-    time was not measured)."""
+    """Bound over device time of a result entry, against the larger of its
+    bytes-or-operations bound and, where it has one, its chain bound (None
+    where the device time was not measured)."""
     ms = r.get(f"{prefix}device_ms")
-    return None if not ms else r[f"{prefix}bound_ms"] / ms
+    bound = max(r[f"{prefix}bound_ms"], r.get(f"{prefix}chain_bound_ms", 0))
+    return None if not ms else bound / ms
 
 
 def _bound(n_bytes: float, f32_ops: float, f64_ops: float = 0.0) -> dict:
@@ -324,14 +417,21 @@ def pool_l2_bytes(shape: dict, n_scales: int, rows: int, Ha: int,
     return blocks * 8 * cells * 8, n_won * 8 * 8
 
 
-def integral_bound(rows: int, cols: int) -> dict:
+def integral_bound(rows: int, cols: int, dadd: dict | None = None) -> dict:
     """Bound of one integral call: it reads flow_len, vx and vy (4-byte
     [rows, cols] maps) and writes the float64 [4, rows + 1, cols + 1]
     integral; per pixel a compare and 3 products in f32 and, for each of 4
-    fields, 2 sums in f64."""
+    fields, 2 sums in f64. With `dadd` (_dadd_latency) also its chain
+    bound: the plain order's longest chain of dependent float64 adds,
+    rows down a column then cols along a row, at the add's latency and
+    the SM clock's maximum."""
     px = rows * cols
-    return _bound(3 * px * 4 + 4 * (rows + 1) * (cols + 1) * 8, 4 * px,
-                  8 * px)
+    out = _bound(3 * px * 4 + 4 * (rows + 1) * (cols + 1) * 8, 4 * px,
+                 8 * px)
+    if dadd:
+        out["chain_bound_ms"] = ((rows + cols) * dadd["dadd_latency_cycles"]
+                                 / (dadd["sm_clock_max_mhz"] * 1e3))
+    return out
 
 
 def _stamp_surfaces(W: int, H: int, seed: int):
@@ -430,6 +530,123 @@ def _library_integral(flow_len, flow_vx, flow_vy):
         torch.cumsum(torch.cumsum(stack, 1), 2), (1, 0, 1, 0))
 
 
+def _kernels_per_call(fn, calls: int = 10, traces: int = 5) -> int:
+    """Device kernels of `calls` calls of fn in torch.profiler's
+    device-side events: up to `traces` traces, until one holds one event
+    a call or more (a trace now and then drops events), after checking
+    that every kernel of every trace has one name. Returns the events of
+    the fullest trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    most = 0
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not e.is_user_annotation]
+        if len(set(names)) > 1:
+            raise AssertionError(f"kernels of one call: {set(names)}")
+        most = max(most, len(names))
+        if most >= calls:
+            break
+    return most
+
+
+def check_integral(dev) -> dict:
+    """Phase 2's integral: the kernel against the plain integral at every
+    shape of INTEGRAL_SHAPES, bit for bit on the card and on the CPU, on
+    the main path's kind of fields and on fields whose float64 sums round,
+    one launch counted and one device kernel a call; at the sensor and the
+    quirk geometry, the cells where CUDA's own innermost-dimension cumsum
+    departs from the sequential order; the device time of the first
+    INTEGRAL_TIMED shapes beside the bytes bound and the chain bound (the
+    card's float64 add latency, measured here). Returns the 320 x 320
+    case's times and bounds."""
+    import torch
+    from farms_tpu_torch.ops import dense_flow as plain
+    from farms_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    dadd = _dadd_latency()
+    _phase("float64 add latency", t0,
+           f"{dadd['dadd_latency_cycles']:.3f} cycles (runs "
+           f"{dadd['dadd_latency_runs']}), SM clock max "
+           f"{dadd['sm_clock_max_mhz']:.0f} MHz")
+    result = None
+    for i, (W, H) in enumerate(INTEGRAL_SHAPES):
+        t0 = time.perf_counter()
+        for arrays in (_flow_fields(W, H, 3), _wide_fields(W, H, 4)):
+            cin = [torch.from_numpy(a) for a in arrays]
+            din = [a.to(dev) for a in cin]
+            kernels.reset_launches()
+            got = kernels.integral(*din)
+            if kernels.LAUNCHES["integral"] != 1 or sum(
+                    kernels.LAUNCHES.values()) != 1:
+                raise AssertionError(f"integral: launches "
+                                     f"{kernels.LAUNCHES}")
+            want = plain.build_integral(*din)
+            cpu = plain.build_integral(*cin)
+            torch.cuda.synchronize()
+            bits = [t.view(torch.int64) for t in (got, want)]
+            if not torch.equal(*bits) or not torch.equal(
+                    bits[0].cpu(), cpu.view(torch.int64)):
+                n = int((bits[0].cpu() != cpu.view(torch.int64)).sum())
+                raise AssertionError(f"integral {W}x{H}: kernel differs "
+                                     f"from plain ({n} cells differ from "
+                                     "the cpu)")
+        # one kernel name, never more events than calls (where a trace
+        # drops events, fewer)
+        n = _kernels_per_call(lambda: kernels.integral(*din), calls=10)
+        if not 0 < n <= 10:
+            raise AssertionError(f"integral {W}x{H}: {n} device kernels "
+                                 f"in 10 calls")
+        line = (f"equal bit for bit to plain on the card and on the cpu "
+                f"(main-path and wide fields); max_abs_err 0.0; one device "
+                f"kernel, {n} recorded in 10 calls")
+        if (W, H) in ((SENSOR, SENSOR), (260, 346)):
+            # CUDA's own cumsum over the innermost dimension (a parallel
+            # scan) against the sequential order, on the wide fields
+            gate = (din[0] > 0).to(torch.float32)
+            stack = torch.stack([gate, din[0] * gate, din[1] * gate,
+                                 din[2] * gate]).to(torch.float64)
+            inner = torch.cumsum(torch.cumsum(stack, 1), 2)
+            departs = int((inner.view(torch.int64)
+                           != want[:, 1:, 1:].contiguous().view(torch.int64))
+                          .sum())
+            line += (f"; on fields whose float64 sums round, torch.cumsum "
+                     f"over the innermost dimension on the card departs "
+                     f"from the sequential order in {departs} of "
+                     f"{inner.numel()} cells")
+        if i < INTEGRAL_TIMED:
+            ins = [torch.from_numpy(a).to(dev)
+                   for a in _flow_fields(W, H, 3)]
+            device_ms = _device_ms(lambda: kernels.integral(*ins))
+            bound = integral_bound(W, H, dadd)
+            line += (f"; device {_fmt_ms(device_ms)}, bytes bound "
+                     f"{bound['bound_ms']:.6f} ms, chain bound "
+                     f"{bound['chain_bound_ms']:.6f} ms")
+            if (W, H) == (SENSOR, SENSOR):
+                ms = _median_ms(lambda: kernels.integral(*ins))
+                plain_ms = _median_ms(lambda: plain.build_integral(*ins))
+                library_ms = _median_ms(lambda: _library_integral(*ins))
+                result = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                              library_ms=library_ms, **bound,
+                              dadd_latency_cycles=dadd["dadd_latency_cycles"],
+                              sm_clock_max_mhz=dadd["sm_clock_max_mhz"])
+                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                         f"library (torch.cumsum over both axes, float64) "
+                         f"{library_ms:.4f} ms")
+        _phase(f"kernel integral {W}x{H}", t0, line)
+    return result
+
+
 def check_kernels(dev):
     """Phase 2: each kernel vs its plain version at the main paths' shapes.
 
@@ -512,60 +729,10 @@ def check_kernels(dev):
             results["local_flow_general"] = dict(
                 times, **local_flow_bound(7, 1, SENSOR, SENSOR, SENSOR))
 
+    results["integral"] = check_integral(dev)
     for (W, H, quirk) in ((SENSOR, SENSOR, False), (260, 346, True)):
-        t0 = time.perf_counter()
         cfg = FlowConfig(width=W, height=H, replicate_y_clamp_quirk=quirk)
-        fields = _flow_fields(W, H, 3)
-        ins = [torch.from_numpy(a).to(dev) for a in fields]
-        # the integral kernel against plain on the card and on the CPU, on
-        # the main path's kind of fields and on fields whose float64 sums
-        # round; and CUDA's own cumsum over the innermost dimension (a
-        # parallel scan) against the sequential order the plain version
-        # makes explicit, on the latter
-        for arrays in (fields, _wide_fields(W, H, 4)):
-            cin = [torch.from_numpy(a) for a in arrays]
-            din = [a.to(dev) for a in cin]
-            kernels.reset_launches()
-            got = kernels.integral(*din)
-            if kernels.LAUNCHES["integral"] != 1:
-                raise AssertionError(f"integral: launches "
-                                     f"{kernels.LAUNCHES}")
-            want = plain.build_integral(*din)
-            cpu = plain.build_integral(*cin)
-            torch.cuda.synchronize()
-            bits = [t.view(torch.int64) for t in (got, want)]
-            if not torch.equal(*bits) or not torch.equal(
-                    bits[0].cpu(), cpu.view(torch.int64)):
-                n = int((bits[0].cpu() != cpu.view(torch.int64)).sum())
-                raise AssertionError(f"integral {W}x{H}: kernel differs "
-                                     f"from plain ({n} cells differ from "
-                                     "the cpu)")
-        gate = (din[0] > 0).to(torch.float32)
-        stack = torch.stack([gate, din[0] * gate, din[1] * gate,
-                             din[2] * gate]).to(torch.float64)
-        inner = torch.cumsum(torch.cumsum(stack, 1), 2)
-        departs = int((inner.view(torch.int64)
-                       != want[:, 1:, 1:].contiguous().view(torch.int64))
-                      .sum())
-        ms = _median_ms(lambda: kernels.integral(*ins))
-        device_ms = _device_ms(lambda: kernels.integral(*ins))
-        plain_ms = _median_ms(lambda: plain.build_integral(*ins))
-        library_ms = _median_ms(lambda: _library_integral(*ins))
-        if (W, H) == (SENSOR, SENSOR):
-            results["integral"] = dict(ms=ms, device_ms=device_ms,
-                                       plain_ms=plain_ms,
-                                       library_ms=library_ms,
-                                       **integral_bound(W, H))
-        _phase(f"kernel integral {W}x{H}", t0,
-               f"equal bit for bit to plain on the card and on the cpu; "
-               f"max_abs_err 0.0; on fields whose float64 sums round, "
-               f"torch.cumsum over the innermost dimension on the card "
-               f"departs from the sequential order in {departs} of "
-               f"{inner.numel()} cells; kernel {ms:.4f} ms "
-               f"(device {_fmt_ms(device_ms)}), plain {plain_ms:.4f} ms, "
-               f"library (torch.cumsum over both axes, float64) "
-               f"{library_ms:.4f} ms")
-
+        ins = [torch.from_numpy(a).to(dev) for a in _flow_fields(W, H, 3)]
         t0 = time.perf_counter()
         got = kernels.aperture(*ins, cfg)
         want = plain.dense_aperture(*ins, cfg)

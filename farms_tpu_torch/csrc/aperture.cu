@@ -7,18 +7,41 @@
 // Plain versions and contracts: dense_aperture and build_integral in
 // farms_tpu_torch/ops/dense_flow.py.
 //
-// The integral (farms_integral, two launches): the 4 gated fields (gate =
-// len > 0, len*gate, vx*gate, vy*gate), formed in f32 and widened to
-// float64, summed down each column (integral_x: one thread per field and
-// column), then along each row in place (integral_y: one warp per field
-// and 32 rows), each a sequential left fold from 0.0 in the plain
-// version's order, with the zero first row and column written in place.
-// What bounds it: latency, not its 4.5 MB of traffic. The plain order
-// leaves 4 x (W + H) independent chains of dependent float64 adds, too
-// few to fill the card; each block keeps the next chunks of its inputs in
-// flight (a cp.async ring of shared memory) while it sums one. What it
-// saves is the ten eager torch ops and their float64 round trips.
-//
+// The integral (farms_integral, one launch of integral_kernel): the 4
+// gated fields (gate = len > 0, len*gate, vx*gate, vy*gate), formed in
+// f32 and widened to float64, summed down each column, then along each
+// row, each a sequential left fold from 0.0 in the plain version's order,
+// with the zero first row and column. What bounds it is not its 4.5 MB of
+// traffic but its chain: rows + cols dependent float64 adds (8 cycles
+// each on an H100), as the order leaves no chain to split. The design
+// keeps each fold lane on its chain:
+// - One launch, two roles, handed out by an atomic ticket in the order
+//   blocks start: column blocks (STRIP integral columns x 4 fields, a
+//   fold lane each) sum down the rows and store the column sums in
+//   place; row blocks (BAND rows x 4 fields) sum those along the rows.
+//   Column blocks wait on no other block and all start before any row
+//   block, so the grid finishes on any number of SMs. A row block starts
+//   once every strip is done: a per-stream counter of finished strips,
+//   raised with a gpu-scope release by each column block and read with
+//   an acquire against this call's target (the host's running total),
+//   so no call resets it. While thread 0 takes the ticket, the producers
+//   already copy the first chunks of strip blockIdx.x (the role a block
+//   mostly gets).
+// - Each block is warps around a ring of SLOTS shared-memory slots
+//   (mbarriers): two producers fill a slot of STEPS fold steps, the fold
+//   warp (alone on its scheduler) sums it in place, two storers write it
+//   out. Column producers copy flow_len, vx and vy once for all 4 fields
+//   (cp.async, RAW chunks ahead) and form the gated f32 values and their
+//   widening there; row producers copy a tile of column sums (cp.async of
+//   8 bytes), one step of 32 lanes a copy, and the storers write rows
+//   with whole warps. The fold loads a half slot ahead of the half it
+//   sums, so that shared memory's latency hides under 16 adds.
+// - Where its time goes on an H100 (320 x 320; measured by
+//   scripts/torch_integral_timeline.py): the column and row chains at
+//   about 0.45 us a slot of 32 steps rather than 32 adds' 0.13 (the
+//   SM's store rate and shared memory, shared by five warps, are
+//   suspected), 1.9 us of hand-off (last column sums stored, released,
+//   seen, first tile copied) and 0.9 us to the first chunk.
 // The pool (aperture_kernel), per pixel and scale s: 4-corner box sums of
 // each field over the window
 // clamped to the sensor (x to [0, W], y to [0, y_clip], which carries the
@@ -88,6 +111,8 @@
 // a plain offset; whole-sensor and row-band launches (col_halo 0) run the
 // same code on the same addresses as before.
 #include <cstdint>
+#include <mutex>
+
 #include <cuda_runtime.h>
 
 #include "async_copy.cuh"
@@ -309,125 +334,370 @@ aperture_kernel(const double* __restrict__ integ, int integ_rows, int rows,
   }
 }
 
-constexpr int SCAN = 32;   // threads of an integral block (one warp)
-constexpr int NSTAGE = 4;  // ring slots of the integral kernels
+constexpr int FIELDS = 4;      // gate, len * gate, vx * gate, vy * gate
+constexpr int STRIP = 8;       // integral columns of a column block
+constexpr int BAND = 8;        // integral rows of a row block
+constexpr int STEPS = 32;      // fold steps of a ring slot: rows of a
+                               // column chunk, columns of a row tile
+constexpr int HALF = STEPS / 2;
+constexpr int SLOTS = 6;       // ring slots of a block
+constexpr int RAW = 3;         // column blocks: a producer's input chunks
+                               // in flight
+// A block's warps by job. Warp w runs on scheduler w % 4: warp 0 folds
+// alone on its scheduler, producers 0 and 1 (warps 1 and 3) have one
+// each (their f32 -> float64 conversions are the slow part of a chunk),
+// storers 0 and 1 (warps 2 and 6) share one; warps 4, 5 and 7 have no
+// job. Producer or storer w fills or empties half w of every slot: fold
+// steps w * HALF .. (a column block) or fold lanes w * HALF .. (a row
+// block).
+constexpr int ROLE_WARPS = 8;
+constexpr int PRODUCERS = 2;
+constexpr int STORERS = 2;
+constexpr int STREAM_SLOTS = 64;  // streams of a device with own counters
+constexpr int LANES = 32;         // fold lanes: FIELDS x STRIP, FIELDS x BAND
+static_assert(FIELDS * STRIP == LANES && FIELDS * BAND == LANES, "");
+static_assert(LANES / STRIP == 4 && STEPS % 8 == 0, "producer lanes");
+static_assert(PRODUCERS == 2 && STORERS == 2 && HALF % BAND == 0,
+              "a producer or storer a half, whole fields of a row block");
 
-// Down each column: thread (field f, integral column j) writes rows 0..rows
-// of column j; j = 0 is the zero column. The sum is a chain of dependent
-// adds, so the inputs of the next NSTAGE - 1 chunks of SCAN rows are in
-// flight (cp.async) while a chunk is summed. A thread reads only the
-// shared-memory words it copied, so it needs no barrier.
-__global__ void __launch_bounds__(SCAN)
-integral_x(const float* __restrict__ flow_len,
-           const float* __restrict__ flow_vx,
-           const float* __restrict__ flow_vy, int rows, int cols,
-           double* __restrict__ integ) {
-  __shared__ float ring[NSTAGE][2][SCAN][SCAN];  // len, and vx or vy
-  const int lane = threadIdx.x;
-  const int j = blockIdx.x * SCAN + lane;
-  const int f = blockIdx.y;
-  if (j > cols) return;
-  const int L = cols + 1;
-  double* I = integ + (size_t)f * (rows + 1) * L + j;
-  I[0] = 0.0;
-  if (j == 0) {
-    for (int i = 1; i <= rows; ++i) I[(size_t)i * L] = 0.0;
-    return;
-  }
-  const float* vel = f == 2 ? flow_vx : flow_vy;
-  auto stage = [&](int c) {  // rows c * SCAN .. of column j into its slot
-    if (c * SCAN < rows) {
-      for (int u = 0; u < SCAN; ++u) {
-        const int i = c * SCAN + u;
-        const size_t p = i < rows ? (size_t)i * cols + j - 1 : 0;
-        const int n = i < rows ? 4 : 0;
-        farms::cp_async4(&ring[c % NSTAGE][0][u][lane], flow_len + p, n);
-        if (f >= 2)
-          farms::cp_async4(&ring[c % NSTAGE][1][u][lane], vel + p, n);
-      }
-    }
-    farms::commit();
-  };
+// Per stream slot: the tickets taken (a block's role is its ticket less
+// the call's first) and the column strips finished, both counted over
+// every call on the slot.
+__device__ unsigned long long g_tickets[STREAM_SLOTS];
+__device__ unsigned long long g_strips_done[STREAM_SLOTS];
+
+// A slot is [fold lane][fold step], rows of PITCH doubles: 16-byte
+// aligned, and 8 lanes' rows fall in 8 distinct 16-byte bank groups, so
+// the fold and the column storers move a lane's steps two at a time; a
+// column producer's store (8 lanes x 4 steps) and a row producer's or
+// storer's access (one step of 32 lanes) meet every bank pair once a
+// half-warp.
+constexpr int PITCH = STEPS + 2;
+
+struct IntegralShared {
+  double ring[SLOTS][LANES * PITCH];
+  float raw[PRODUCERS][RAW][3][HALF][STRIP];  // column blocks' inputs
+  uint64_t full[SLOTS], done[SLOTS], empty[SLOTS];
+  int role;
+};
+
+// A warp's producer or storer index, -1 if it has not that job.
+__device__ __forceinline__ int producer_of(int warp) {
+  return warp == 1 ? 0 : warp == 3 ? 1 : -1;
+}
+__device__ __forceinline__ int storer_of(int warp) {
+  return warp == 2 ? 0 : warp == 6 ? 1 : -1;
+}
+
+// Keeps a warp's shared-memory loads above this point, issued together,
+// rather than each next to the store that uses it.
+__device__ __forceinline__ void after_loads() {
+  asm volatile("" ::: "memory");
+}
+
+// The storer warps' own barrier (named barrier 1).
+__device__ __forceinline__ void storers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(STORERS * 32) : "memory");
+}
+
+// Slot s as [fold lane][fold step].
+using SlotRows = double (*)[PITCH];
+__device__ __forceinline__ SlotRows slot_of(IntegralShared& sh, int s) {
+  return reinterpret_cast<SlotRows>(sh.ring[s]);
+}
+
+// HALF steps of a lane's row from p (16-byte aligned) into registers.
+__device__ __forceinline__ void load_half(const double* p, double* v) {
+  const double2* r = reinterpret_cast<const double2*>(p);
 #pragma unroll
-  for (int c = 0; c < NSTAGE - 1; ++c) stage(c);
-  double acc = 0.0;
-  for (int c = 0; c * SCAN < rows; ++c) {
-    farms::wait<NSTAGE - 2>();
-    stage(c + NSTAGE - 1);  // into the slot of chunk c - 1, read already
-    // the chunk's field values first, off the chain of dependent adds
-    const float(*in)[SCAN][SCAN] = ring[c % NSTAGE];
-    double val[SCAN];
-#pragma unroll
-    for (int u = 0; u < SCAN; ++u) {
-      const float len = in[0][u][lane];
-      const float gate = len > 0.0f ? 1.0f : 0.0f;
-      val[u] = (double)(f == 0   ? gate
-                        : f == 1 ? len * gate
-                                 : in[1][u][lane] * gate);
-    }
-#pragma unroll
-    for (int u = 0; u < SCAN; ++u) {
-      if (c * SCAN + u < rows) {
-        acc = acc + val[u];
-        I[(size_t)(c * SCAN + u + 1) * L] = acc;
-      }
-    }
+  for (int h = 0; h < HALF / 2; ++h) {
+    const double2 x = r[h];
+    v[2 * h] = x.x;
+    v[2 * h + 1] = x.y;
   }
 }
 
-// Along each row, in place: warp (field f, rows i0..i0+31) scans a 32 x 32
-// tile at a time, lane q carrying row i0 + q's sum from tile to tile; the
-// next NSTAGE - 1 tiles are in flight (cp.async) during a tile's scan.
-__global__ void __launch_bounds__(SCAN)
-integral_y(double* __restrict__ integ, int rows, int cols) {
-  __shared__ double ring[NSTAGE][SCAN][SCAN + 1];
-  const int f = blockIdx.y;
-  const int i0 = 1 + blockIdx.x * SCAN;  // row 0 is the zero row
-  const int L = cols + 1;
-  const int lane = threadIdx.x;
-  double* I = integ + (size_t)f * (rows + 1) * L;
-  const int nrow = min(SCAN, rows + 1 - i0);
-  auto stage = [&](int c) {  // columns 1 + c * SCAN .. of the block's rows
-    const int j = 1 + c * SCAN + lane;
-    if (j - lane <= cols) {
-      for (int q = 0; q < SCAN; ++q) {
-        const bool in = q < nrow && j <= cols;
-        farms::cp_async8(&ring[c % NSTAGE][q][lane],
-                         in ? I + (size_t)(i0 + q) * L + j : I, in ? 8 : 0);
+// The parity of the round of slot uses that use k (the k-th slot filled)
+// belongs to: a wait for use k waits on it.
+__device__ __forceinline__ unsigned round_parity(int k) {
+  return (k / SLOTS) & 1;
+}
+
+// The fold warp over n slots in order, each lane's chain carried from slot
+// to slot, each sum stored in place of its value; done[s] once a slot is
+// summed. A slot is taken in two halves, and each half's values are
+// loaded before the half ahead of it is summed, so that the loads' latency
+// (long while other warps keep shared memory busy) hides under 16 adds.
+__device__ __forceinline__ void fold_warp(IntegralShared& sh, int n,
+                                          int lane) {
+  double acc = 0.0;
+  double a[HALF], b[HALF];
+  auto load = [&](double* dst, int i) {  // half i: slot i / 2, half i % 2
+    const int k = i / 2, s = k % SLOTS;
+    if (i % 2 == 0) farms::mbar_wait(&sh.full[s], round_parity(k));
+    load_half(slot_of(sh, s)[lane] + i % 2 * HALF, dst);
+  };
+  auto sum = [&](const double* src, int i) {
+    const int k = i / 2, s = k % SLOTS;
+    double2* r = reinterpret_cast<double2*>(slot_of(sh, s)[lane] +
+                                            i % 2 * HALF);
+#pragma unroll
+    for (int h = 0; h < HALF / 2; ++h) {
+      const double x = acc + src[2 * h];
+      acc = x + src[2 * h + 1];
+      r[h] = make_double2(x, acc);
+    }
+    if (i % 2) farms::mbar_arrive(&sh.done[s]);
+  };
+  if (n > 0) load(a, 0);
+  for (int i = 0; i < 2 * n; i += 2) {
+    load(b, i + 1);
+    sum(a, i);
+    if (i + 2 < 2 * n) load(a, i + 2);
+    sum(b, i + 1);
+  }
+}
+
+// Column producer pw's copies of chunk k of strip's inputs into its raw
+// stage k % RAW: lane (row u, column c) of the chunk's half pw, rows u =
+// lane / STRIP + 4t; each warp copy is 4 rows of STRIP floats of each of
+// flow_len, vx and vy (zeros past the sensor and for the zero column).
+__device__ __forceinline__ void stage_chunk(
+    IntegralShared& sh, int strip, int pw, int k, int lane,
+    const float* __restrict__ flow_len, const float* __restrict__ flow_vx,
+    const float* __restrict__ flow_vy, int rows, int cols) {
+  const int n_chunks = (rows + STEPS - 1) / STEPS;
+  if (k < n_chunks) {
+    const int c = lane % STRIP, u0 = lane / STRIP;
+    const int j = strip * STRIP + c;  // integral column, input column j - 1
+    const bool col_ok = j >= 1 && j <= cols;
+    const int i0 = k * STEPS + pw * HALF + u0;  // input row of t = 0
+    float(*r)[HALF][STRIP] = sh.raw[pw][k % RAW];
+    const size_t row4 = (size_t)4 * cols;
+    size_t q = col_ok ? (size_t)i0 * cols + j - 1 : 0;
+#pragma unroll
+    for (int t = 0; t < HALF / 4; ++t) {
+      const bool ok = col_ok && i0 + 4 * t < rows;
+      const int n = ok ? 4 : 0;
+      const size_t qq = ok ? q : 0;
+      farms::cp_async4(&r[0][u0 + 4 * t][c], flow_len + qq, n);
+      farms::cp_async4(&r[1][u0 + 4 * t][c], flow_vx + qq, n);
+      farms::cp_async4(&r[2][u0 + 4 * t][c], flow_vy + qq, n);
+      q += row4;
+    }
+  }
+  farms::commit();
+}
+
+// Column block `strip`: integral columns strip * STRIP .. (column 0 is
+// the zero column), rows 0 .. rows of all 4 fields. `staged`: the
+// producers' first RAW - 1 chunks are in flight already.
+__device__ __forceinline__ void integral_columns(
+    IntegralShared& sh, int strip, bool staged,
+    const float* __restrict__ flow_len, const float* __restrict__ flow_vx,
+    const float* __restrict__ flow_vy, int rows, int cols,
+    double* __restrict__ integ, int slot) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t L = (size_t)cols + 1, plane = (rows + 1) * L;
+  const int n_chunks = (rows + STEPS - 1) / STEPS;
+  if (producer_of(warp) >= 0) {  // half pw of every chunk
+    const int pw = producer_of(warp);
+    const int c = lane % STRIP, u0 = lane / STRIP;
+    if (!staged)
+#pragma unroll
+      for (int k = 0; k < RAW - 1; ++k)
+        stage_chunk(sh, strip, pw, k, lane, flow_len, flow_vx, flow_vy,
+                    rows, cols);
+    for (int k = 0; k < n_chunks; ++k) {
+      stage_chunk(sh, strip, pw, k + RAW - 1, lane, flow_len, flow_vx,
+                  flow_vy, rows, cols);  // into chunk k - 1's stage
+      farms::wait<RAW - 1>();
+      const int s = k % SLOTS;
+      const float(*in)[HALF][STRIP] = sh.raw[pw][k % RAW];
+      float x[3][HALF / 4];
+#pragma unroll
+      for (int t = 0; t < HALF / 4; ++t)
+#pragma unroll
+        for (int a = 0; a < 3; ++a) x[a][t] = in[a][u0 + 4 * t][c];
+      after_loads();
+      farms::mbar_wait(&sh.empty[s], round_parity(k) ^ 1);
+      double(*out)[PITCH] = slot_of(sh, s);
+#pragma unroll
+      for (int t = 0; t < HALF / 4; ++t) {
+        const int u = pw * HALF + u0 + 4 * t;
+        const bool on = x[0][t] > 0.0f;
+        const float gate = on ? 1.0f : 0.0f;
+        out[c][u] = on ? 1.0 : 0.0;  // (double)gate
+        out[STRIP + c][u] = (double)(x[0][t] * gate);
+        out[2 * STRIP + c][u] = (double)(x[1][t] * gate);
+        out[3 * STRIP + c][u] = (double)(x[2][t] * gate);
+      }
+      farms::mbar_arrive(&sh.full[s]);
+    }
+  } else if (warp == 0) {  // fold: lane (field lane / STRIP, column)
+    fold_warp(sh, n_chunks, lane);
+  } else if (storer_of(warp) >= 0) {  // the fold's lanes; steps sw * HALF
+                                      // .. of every chunk
+    const int sw = storer_of(warp);
+    const int j = strip * STRIP + lane % STRIP;
+    const bool ok = j <= cols;
+    double* I = integ + (lane / STRIP) * plane + j;
+    if (ok && sw == 0) I[0] = 0.0;  // the zero row
+    for (int k = 0; k < n_chunks; ++k) {
+      const int s = k % SLOTS;
+      farms::mbar_wait(&sh.done[s], round_parity(k));
+      double v[HALF];
+      load_half(slot_of(sh, s)[lane] + sw * HALF, v);
+      after_loads();
+      farms::mbar_arrive(&sh.empty[s]);  // the half is in registers
+      const int i0 = k * STEPS + sw * HALF;  // its first step's row - 1
+      double* Ik = I + (size_t)(1 + i0) * L;
+      const int n = min(HALF, rows - i0);
+      if (ok && n == HALF) {
+#pragma unroll
+        for (int u = 0; u < HALF; ++u) {
+          *Ik = v[u];
+          Ik += L;
+        }
+      } else if (ok) {
+#pragma unroll
+        for (int u = 0; u < HALF; ++u)
+          if (u < n) Ik[u * L] = v[u];
       }
     }
-    farms::commit();
-  };
+    // count the strip done: the storers' stores are ordered before the
+    // release by their barrier
+    storers_sync();
+    if (sw == 0 && lane == 0) farms::add_release(&g_strips_done[slot], 1);
+  }
+}
+
+// Row block `band`: integral rows 1 + band * BAND .., columns 1 .. cols
+// of all 4 fields, over the column sums in place, once `strips_done`
+// column strips are done.
+__device__ __forceinline__ void integral_rows(
+    IntegralShared& sh, int band, int rows, int cols,
+    double* __restrict__ integ, int slot, unsigned long long strips_done) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t L = (size_t)cols + 1, plane = (rows + 1) * L;
+  const int i0 = 1 + band * BAND;
+  const int n_tiles = (cols + STEPS - 1) / STEPS;
+  const int nrow = min(BAND, rows + 1 - i0);
+  // this lane's column of tile 0 in field 0, row i0
+  double* const I = integ + (size_t)i0 * L + 1 + lane;
+  if (producer_of(warp) >= 0) {  // lane = a tile column; fold lanes pw *
+                                 // HALF .. of every tile
+    const int pw = producer_of(warp);
+    if (lane == 0) {
+      // a column block that never finishes (a fault) ends the kernel with
+      // an error, not a hang
+      const long long t0 = clock64();
+      while (farms::load_relaxed(&g_strips_done[slot]) < strips_done)
+        if (clock64() - t0 > (1LL << 34)) __trap();
+      farms::fence_acq_rel();  // with the relaxed load: an acquire
+    }
+    __syncwarp();  // orders every lane's copies after it
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % SLOTS;
+      farms::mbar_wait(&sh.empty[s], round_parity(t) ^ 1);
+      const bool col_ok = 1 + t * STEPS + lane <= cols;
+      double(*d)[PITCH] = slot_of(sh, s);
 #pragma unroll
-  for (int c = 0; c < NSTAGE - 1; ++c) stage(c);
-  double acc = 0.0;                      // the zero first column
-  for (int c = 0; 1 + c * SCAN <= cols; ++c) {
-    farms::wait<NSTAGE - 2>();
-    __syncwarp();  // every lane's copies; and tile c - 1 is written back
-    stage(c + NSTAGE - 1);
-    double(*t)[SCAN + 1] = ring[c % NSTAGE];
-    const int ncol = min(SCAN, cols - c * SCAN);
-    if (lane < nrow) {  // loads, the chain of dependent adds, stores
-      double row[SCAN];
+      for (int g = 0; g < HALF / BAND; ++g) {
+        const int f = pw * HALF / BAND + g;
+        const double* q = I + t * STEPS + f * plane;
 #pragma unroll
-      for (int k = 0; k < SCAN; ++k) row[k] = t[lane][k];
-#pragma unroll
-      for (int k = 0; k < SCAN; ++k) {
-        if (k < ncol) {
-          acc = acc + row[k];
-          row[k] = acc;
+        for (int r = 0; r < BAND; ++r) {
+          const bool ok = col_ok && r < nrow;
+          farms::cp_async8(&d[f * BAND + r][lane], ok ? q : integ,
+                           ok ? 8 : 0);
+          q += L;
         }
       }
-#pragma unroll
-      for (int k = 0; k < SCAN; ++k) t[lane][k] = row[k];
+      farms::arrive_copies(&sh.full[s]);
     }
-    __syncwarp();
-    const int j = 1 + c * SCAN + lane;
+  } else if (warp == 0) {  // fold: lane (field lane / BAND, row), from
+                           // the zero first column
+    fold_warp(sh, n_tiles, lane);
+  } else if (storer_of(warp) >= 0) {  // lane = a tile column, whole rows
+                                      // a store; fold lanes sw * HALF ..
+    const int sw = storer_of(warp);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % SLOTS;
+      farms::mbar_wait(&sh.done[s], round_parity(t));
+      double v[HALF];
 #pragma unroll
-    for (int q = 0; q < SCAN; ++q)
-      if (q < nrow && j <= cols) I[(size_t)(i0 + q) * L + j] = t[q][lane];
+      for (int x = 0; x < HALF; ++x)
+        v[x] = slot_of(sh, s)[sw * HALF + x][lane];
+      after_loads();
+      farms::mbar_arrive(&sh.empty[s]);  // the half is in registers
+      if (1 + t * STEPS + lane <= cols) {
+#pragma unroll
+        for (int g = 0; g < HALF / BAND; ++g) {
+          double* q = I + t * STEPS + (sw * HALF / BAND + g) * plane;
+#pragma unroll
+          for (int r = 0; r < BAND; ++r) {
+            if (r < nrow) *q = v[g * BAND + r];
+            q += L;
+          }
+        }
+      }
+    }
   }
 }
+
+__global__ void __launch_bounds__(ROLE_WARPS * 32)
+integral_kernel(const float* __restrict__ flow_len,
+                const float* __restrict__ flow_vx,
+                const float* __restrict__ flow_vy, int rows, int cols,
+                double* __restrict__ integ, int slot,
+                unsigned long long ticket0, unsigned long long strips_done) {
+  extern __shared__ __align__(16) unsigned char integral_smem[];
+  IntegralShared& sh = *reinterpret_cast<IntegralShared*>(integral_smem);
+  const int n_strips = (cols + STRIP) / STRIP;
+  const int pw = producer_of(threadIdx.x / 32);
+  // A block's role is its ticket, known after a trip to L2: meanwhile the
+  // producers copy the first chunks of strip blockIdx.x, the role blocks
+  // mostly get (dropped where it is not).
+  const bool guess = blockIdx.x < n_strips;
+  if (guess && pw >= 0)
+#pragma unroll
+    for (int k = 0; k < RAW - 1; ++k)
+      stage_chunk(sh, blockIdx.x, pw, k, threadIdx.x % 32, flow_len, flow_vx,
+                  flow_vy, rows, cols);
+  if (threadIdx.x == 0) {
+    const unsigned long long t = atomicAdd(&g_tickets[slot], 1ULL) - ticket0;
+    if (t >= gridDim.x) __trap();  // a replayed launch
+    sh.role = (int)t;
+    for (int s = 0; s < SLOTS; ++s) {
+      farms::mbar_init(&sh.full[s], 2 * 32);   // both producer warps
+      farms::mbar_init(&sh.done[s], 32);       // the fold warp
+      farms::mbar_init(&sh.empty[s], 2 * 32);  // both storer warps
+    }
+    farms::mbar_init_fence();
+  }
+  __syncthreads();
+  const int role = sh.role;
+  const bool staged = guess && role == (int)blockIdx.x;
+  if (guess && !staged && pw >= 0) farms::wait<0>();  // drop the guess
+  if (role < n_strips)
+    integral_columns(sh, role, staged, flow_len, flow_vx, flow_vy, rows,
+                     cols, integ, slot);
+  else
+    integral_rows(sh, role - n_strips, rows, cols, integ, slot,
+                  strips_done);
+}
+
+// Each stream's counters on each device (< 64, as for the pool): its
+// slot, and the tickets taken and column strips finished by its calls.
+struct StreamCounters {
+  cudaStream_t stream;
+  unsigned long long tickets, strips;
+  bool used;
+};
+std::mutex counters_mu;
+StreamCounters counters[64][STREAM_SLOTS];
+bool integral_smem_set[64];  // the kernel's dynamic shared memory allowed
 
 // The SM count of the current device, read once per device; allows the
 // pool its largest slabs at the same first use. 0 on failure (err set).
@@ -517,20 +787,49 @@ extern "C" int farms_aperture_shape(int rows, int Ha, int jump,
 
 // C entry point of the integral. flow_len/flow_vx/flow_vy: f32 [rows,
 // cols]; integ: float64 [4, rows + 1, cols + 1]; all contiguous on the
-// current device. Returns the first failed launch's cudaError_t
-// (cudaErrorInvalidValue for an empty shape).
+// current device. One launch on `stream`. Returns the launch's
+// cudaError_t (cudaErrorInvalidValue for an empty shape,
+// cudaErrorLaunchOutOfResources past STREAM_SLOTS streams on a device).
 extern "C" int farms_integral(const void* flow_len, const void* flow_vx,
                               const void* flow_vy, int rows, int cols,
                               void* integ, void* stream) {
-  if (rows < 1 || cols < 1) return (int)cudaErrorInvalidValue;
+  if (rows < 1 || cols < 1 || rows > 0x7fffffff - BAND ||
+      cols > 0x7fffffff - STRIP)
+    return (int)cudaErrorInvalidValue;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return (int)e;
+  if (device >= 64) return (int)cudaErrorInvalidDevice;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  integral_x<<<dim3((cols + SCAN) / SCAN, 4), SCAN, 0, s>>>(
+  std::lock_guard<std::mutex> lock(counters_mu);
+  if (!integral_smem_set[device]) {
+    e = cudaFuncSetAttribute(integral_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             sizeof(IntegralShared));
+    if (e != cudaSuccess) return (int)e;
+    integral_smem_set[device] = true;
+  }
+  StreamCounters* table = counters[device];
+  int slot = -1;
+  for (int i = 0; i < STREAM_SLOTS && slot < 0; ++i)
+    if (table[i].used && table[i].stream == s) slot = i;
+  for (int i = 0; i < STREAM_SLOTS && slot < 0; ++i)
+    if (!table[i].used) {
+      table[i] = StreamCounters{s, 0, 0, true};
+      slot = i;
+    }
+  if (slot < 0) return (int)cudaErrorLaunchOutOfResources;
+  StreamCounters& c = table[slot];
+  const int n_strips = (cols + STRIP) / STRIP;
+  const int n_blocks = n_strips + (rows + BAND - 1) / BAND;
+  integral_kernel<<<n_blocks, ROLE_WARPS * 32, sizeof(IntegralShared), s>>>(
       static_cast<const float*>(flow_len), static_cast<const float*>(flow_vx),
       static_cast<const float*>(flow_vy), rows, cols,
-      static_cast<double*>(integ));
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  integral_y<<<dim3((rows + SCAN - 1) / SCAN, 4), SCAN, 0, s>>>(
-      static_cast<double*>(integ), rows, cols);
-  return (int)cudaGetLastError();
+      static_cast<double*>(integ), slot, c.tickets, c.strips + n_strips);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) {
+    c.tickets += n_blocks;
+    c.strips += n_strips;
+  }
+  return (int)e;
 }

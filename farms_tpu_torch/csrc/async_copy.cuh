@@ -3,6 +3,14 @@
 // writes zeros without reading src. Copies are grouped by commit(); wait<N>
 // returns once at most N of the thread's groups are still in flight, after
 // which the thread sees its own copies (other threads' after a barrier).
+//
+// Shared-memory barriers (mbarrier, sm_90) hand ring slots from one warp
+// to another: a phase completes when its count of arrivals is in, and a
+// wait on parity p returns once the phase of parity p has completed
+// (arrive releases, wait acquires, at block scope). arrive_copies makes
+// one of those arrivals when the thread's earlier cp.async copies have
+// landed. add_release, and load_relaxed followed by fence_acq_rel, order
+// memory between blocks (gpu scope).
 #pragma once
 
 #include <cstdint>
@@ -36,6 +44,63 @@ __device__ __forceinline__ void commit() {
 template <int N>
 __device__ __forceinline__ void wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// makes the inits visible before any thread uses the barriers
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void arrive_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ unsigned long long load_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void fence_acq_rel() {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void add_release(unsigned long long* p,
+                                            unsigned long long v) {
+  asm volatile("red.release.gpu.global.add.u64 [%0], %1;\n" ::"l"(p), "l"(v)
+               : "memory");
 }
 
 }  // namespace farms

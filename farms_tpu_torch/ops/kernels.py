@@ -177,7 +177,7 @@ def integral(flow_len: torch.Tensor, flow_vx: torch.Tensor,
     """The float64 integral image of f32 [rows, cols] flow surfaces: the
     contract, summation order included, of dense_flow.build_integral,
     [4, rows + 1, cols + 1]. Counted under "integral", one per call (its
-    two launches)."""
+    one launch)."""
     if flow_len.device.type == "cpu":
         return build_integral(flow_len, flow_vx, flow_vy)
     if flow_len.device.type != "cuda":

@@ -21,6 +21,14 @@ rows and shared bytes (the general kernel's ring and slots are dynamic
 shared memory) at each filter size timed; where it has
 ops/kernels.aperture_shape, the pool's tile, slabs and dynamic shared
 bytes at 320 x 320, 260 x 346 and an 80-row band (window jump 5).
+The integral is timed alone at `chip_smoke.py`'s timed integral shapes
+(320 x 320, 260 x 346, harness config 5's 1280 x 720, an 80-row band of
+320 and a 160 x 160 tile), with the device time of each kernel it
+launches.
+`--dadd-latency` also prints the card's float64 add latency and the SM
+clock's maximum (`chip_smoke._dadd_latency`: one thread's chains of
+dependent adds timed with clock64()); (rows + cols) adds at that latency
+and clock are the integral's chain bound.
 `--match REGEX` times only the cases whose name matches. Prints one JSON
 line per case and a summary line; a case that the tree refuses
 (NotImplementedError) prints what it raised.
@@ -85,12 +93,34 @@ def ptxas(_build) -> list:
     return out
 
 
+def kernel_ms(fn, reps: int = 30) -> dict:
+    """Median device ms of one call of fn, by kernel name (torch.profiler's
+    device-side events, times each kernel's launches per call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            by_name.setdefault(e.name, []).append(e.self_device_time_total)
+    return {name: float(np.median(t)) * max(1, round(len(t) / reps)) / 1e3
+            for name, t in by_name.items()}
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--tree", default=ROOT)
     p.add_argument("--label", default="")
     p.add_argument("--ptxas", action="store_true")
     p.add_argument("--match", default="")
+    p.add_argument("--dadd-latency", action="store_true")
     args = p.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -108,6 +138,9 @@ def main() -> int:
     label = args.label or tree
     smi = cs._nvidia_smi()
     _build.load()
+    if args.dadd_latency:
+        print(json.dumps({"tree": label, "card": smi, **cs._dadd_latency()}),
+              flush=True)
     if args.ptxas:
         for row in ptxas(_build):
             print(json.dumps({"tree": label, "ptxas": row}), flush=True)
@@ -130,7 +163,7 @@ def main() -> int:
 
     rows = []
 
-    def case(name, fn, pool=False):
+    def case(name, fn, pool=False, split=False):
         if not re.search(args.match, name):
             return
         try:
@@ -141,6 +174,8 @@ def main() -> int:
             row = {"case": name, "device_ms": cs._device_ms(fn)}
             if pool:
                 row["pool_device_ms"] = cs._device_ms(fn, "aperture_kernel")
+            if split:
+                row["kernels"] = kernel_ms(fn)
         rows.append(row)
         print(json.dumps({"tree": label, **row}), flush=True)
 
@@ -174,10 +209,12 @@ def main() -> int:
     # phase 2: the integral and the aperture pass (the parent's integral is
     # the plain version's eager ops, which its wrapper ran)
     integral = getattr(kernels, "integral", plain.build_integral)
+    for W, H in cs.INTEGRAL_SHAPES[:cs.INTEGRAL_TIMED]:
+        ins = T(*cs._flow_fields(W, H, 3))
+        case(f"integral {W}x{H}", lambda ins=ins: integral(*ins), split=True)
     for (W, H, quirk) in ((SENSOR, SENSOR, False), (260, 346, True)):
         cfg = FlowConfig(width=W, height=H, replicate_y_clamp_quirk=quirk)
         ins = T(*cs._flow_fields(W, H, 3))
-        case(f"integral {W}x{H}", lambda ins=ins: integral(*ins))
         case(f"aperture {W}x{H}",
              lambda ins=ins, cfg=cfg: kernels.aperture(*ins, cfg), pool=True)
 

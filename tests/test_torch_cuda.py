@@ -297,8 +297,19 @@ def _wide_fields(W, H, seed):
     return tuple((mag * sign * mask).astype(np.float32))
 
 
+# every shape the integral's callers pass: the sensor, the quirk geometry,
+# harness config 5's sensor, an 80-row band of 320, spatial tiles of (2,
+# 2), (4, 2) and (1, 4) at 260 x 348, one row and one column
+INTEGRAL_SHAPES = [(320, 320), (260, 346), (1280, 720), (80, 320),
+                   (160, 160), (80, 160), (260, 87), (1, 17), (33, 1)]
+
+
+def _bits(t):
+    return t.view(torch.int64)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("geom", [(320, 320), (260, 346)])
+@pytest.mark.parametrize("geom", INTEGRAL_SHAPES)
 @pytest.mark.parametrize("wide", [False, True])
 def test_cuda_integral_kernel_matches_plain(cuda, geom, wide):
     """The float64 integral kernel, bit for bit against the plain version
@@ -311,9 +322,66 @@ def test_cuda_integral_kernel_matches_plain(cuda, geom, wide):
     got = tk.integral(*ins)
     assert tk.LAUNCHES["integral"] == 1 and sum(tk.LAUNCHES.values()) == 1
     want = tdf.build_integral(*ins)
-    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
-    assert torch.equal(got.cpu().view(torch.int64),
-                       tdf.build_integral(*cpu).view(torch.int64))
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(got.cpu()), _bits(tdf.build_integral(*cpu)))
+
+
+@pytest.mark.cuda
+def test_cuda_integral_back_to_back_calls_match_plain(cuda):
+    """200 calls on one stream, queued without a wait: each call's
+    generation keeps its row blocks off the counters of the calls before
+    it."""
+    ins = [torch.from_numpy(a).to(cuda) for a in _wide_fields(320, 320, 5)]
+    want = _bits(tdf.build_integral(*ins))
+    outs = [tk.integral(*ins) for _ in range(200)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(_bits(o), want) for o in outs)
+
+
+@pytest.mark.cuda
+def test_cuda_integral_two_shapes_on_two_streams_match_plain(cuda):
+    """Calls that alternate two shapes and two streams, in flight together:
+    each stream has its own counters, each call its own generation."""
+    a = [torch.from_numpy(x).to(cuda) for x in _wide_fields(320, 320, 6)]
+    b = [torch.from_numpy(x).to(cuda) for x in _wide_fields(80, 160, 7)]
+    want = {True: _bits(tdf.build_integral(*a)),
+            False: _bits(tdf.build_integral(*b))}
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(50):
+        for s, x in ((0, a), (1, b), (1, a), (0, b)):
+            with torch.cuda.stream(streams[s]):
+                outs.append((tk.integral(*x), x is a))
+    torch.cuda.synchronize()
+    assert all(torch.equal(_bits(o), want[isa]) for o, isa in outs)
+
+
+@pytest.mark.cuda
+def test_cuda_integral_is_one_kernel_a_call(cuda):
+    """torch.profiler sees one device kernel for each integral call: one
+    kernel name, and never more events than calls (a trace now and then
+    drops events, so the fullest of up to 5 traces is taken)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    ins = [torch.from_numpy(a).to(cuda) for a in _flow_fields(320, 320, 8)]
+    tk.integral(*ins)
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(5):      # a trace now and then drops device events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                tk.integral(*ins)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not e.is_user_annotation]
+        assert len(set(names)) <= 1, names
+        counts.append(len(names))
+        if len(names) >= 10:
+            break
+    assert 0 < max(counts) <= 10, counts
 
 
 # (sensor W, H, y-clamp quirk, max_window, window_jump, padded arrays,
