@@ -100,7 +100,7 @@ Phases, each printed with its result and seconds:
    tie count printed); then [rates] of the single engine and of dp,
    multihost and spatial (x tiles; and (2, 2)) at 2 and 4 ranks, and the
    benchmark harness's config 5 (the halo engine's process_resident over
-   every card). With
+   every card), and the scaling sweep of phase 20 at N = 2 (and 4). With
    one card it prints why it did not run (`--nccl-only` runs this phase
    alone, after the build);
 9. `--backend perevent --preset benchmark` through the CLI on the same
@@ -133,7 +133,21 @@ Phases, each printed with its result and seconds:
    a replay from its start state equal to the first run;
 16. the benchmark harness (farms_tpu_torch/bench/harness.py) configs 1-4,
    each JSON line with the card's name and power limit and the kernels
-   it launched.
+   it launched;
+17. the accuracy sweep (farms_tpu_torch/bench/accuracy.py) on its
+   120,000-event bar stream, uncut: the float64 oracle's seconds, then the
+   `benchmark` and `fidelity` rows on the card beside ACCURACY.json's
+   rows (the same oracle valid count, validity agreement within
+   ACCURACY_SLACK), with their launch counts;
+18. the benchmark line (farms_tpu_torch/bench/driver.py) at reduced call
+   counts (DRIVER_ENV): its JSON line with the card, the kernels it
+   launched;
+19. the device sweep (farms_tpu_torch/bench/device_sweep.py) on both
+   presets' configs, a JSON line each;
+20. the scaling sweep (farms_tpu_torch/bench/scaling.py) at N = 1 (the
+   single engine's process_resident against process(), and its rate);
+   the NCCL phase runs it at N = 2 and 4 (every engine) where the cards
+   are there.
 
 The line before the last is the card's nvidia-smi name and power limit;
 the one before it a JSON summary of the kernels, with each kernel's bound
@@ -210,6 +224,21 @@ PEAK_F64 = 34e12
 INTEGRAL_SHAPES = ((SENSOR, SENSOR), (260, 346), (1280, 720), (80, SENSOR),
                    (160, 160), (80, 160), (260, 87), (1, 17), (33, 1))
 INTEGRAL_TIMED = 5
+# the accuracy sweep's preset rows on the bar stream (chunk, P, A, S, C,
+# coarse chain): farms_tpu/cli.py:182 and :188
+ACCURACY_PRESETS = {"benchmark": (131072, 2, 2, 1, 0, False),
+                    "fidelity": (131072, 2, 2, 8, 32768, True)}
+# validity agreement the port may miss ACCURACY.json's row by before the
+# phase fails: the accept flips of FMA and summation order that
+# tests/test_torch_engine.py's _assert_engines_agree allows (0.1 % of
+# lanes; PR 12's rows were equal)
+ACCURACY_SLACK = 0.001
+# the driver phase's reduced call counts
+DRIVER_ENV = {"FARMS_BENCH_CALLS": "4", "FARMS_BENCH_E2E_REPS": "2"}
+# the device sweep's configs the smoke runs: both presets' (P, A, S, C)
+DEVICE_SWEEP_CONFIGS = ((2, 2, 1, 0), (2, 2, 8, 32768))
+# events a timed round of the smoke's scaling sweeps replays
+SCALING_REPLAY = 1 << 20
 
 # One thread: a chain of 64 * n dependent float64 adds between two
 # clock64() reads. The adds cannot be reassociated (no fast math), so the
@@ -1690,6 +1719,200 @@ def check_harness(smi, config_ids=("1", "2", "3", "4")):
     return results
 
 
+def _accuracy_reference(row) -> dict | None:
+    """ACCURACY.json's bar row of the same (chunk, P, A, S, C, coarse
+    chain); its early rows have no correction / coarse_chain key and ran
+    with 0 / off."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "ACCURACY.json")
+    keys = ("chunk_size", "sub_phases", "aperture_sub_phases",
+            "causal_snapshots")
+    with open(path) as fh:
+        rows = json.load(fh)["streams"]["bar"]["rows"]
+    for r in rows:
+        if (all(r[k] == row[k] for k in keys)
+                and r.get("correction", 0) == row["correction"]
+                and r.get("coarse_chain", False) == row["coarse_chain"]):
+            return r
+    return None
+
+
+def check_accuracy(smi):
+    """Phase 17: the accuracy sweep (farms_tpu_torch/bench/accuracy.py) on
+    the 120,000-event bar stream: the float64 oracle's time, then the
+    `benchmark` and `fidelity` rows through the port's FlowEngine on the
+    card, each beside ACCURACY.json's row: the oracle's valid count must
+    be the same and the validity agreement within ACCURACY_SLACK; the
+    kernels launched. Returns {label: (launches, events/s)}."""
+    from farms_tpu_torch.bench import accuracy
+    from farms_tpu_torch.config import FlowConfig
+
+    t0 = time.perf_counter()
+    ev = accuracy.make_stream("bar", 120_000)
+    orc = accuracy.oracle_cached(ev, FlowConfig(width=SENSOR, height=SENSOR),
+                                 "bar")
+    _phase("accuracy oracle", t0, f"{len(ev)} bar events, "
+           f"{int((orc['r_local'] > 0).sum())} valid (float64 NumPy oracle, "
+           f"cache {os.path.relpath(accuracy.CACHE_DIR)})")
+    results = {}
+    for preset, (m, P, A, S, C, coarse) in ACCURACY_PRESETS.items():
+        t0 = time.perf_counter()
+        (row, _, dt), launches = _counted(
+            f"accuracy {preset}",
+            lambda: accuracy.run_row(ev, orc, chunk_size=m, sub_phases=P,
+                                     aperture_sub_phases=A,
+                                     causal_snapshots=S, correction=C,
+                                     coarse_chain=coarse, device="cuda"),
+            _preset_launches(-(-len(ev) // m))[preset])
+        ref = _accuracy_reference(row)
+        if ref is None:
+            raise AssertionError(f"accuracy {preset}: no ACCURACY.json row "
+                                 f"for {row}")
+        if row["n_valid_oracle"] != ref["n_valid_oracle"]:
+            raise AssertionError(f"accuracy {preset}: the oracle has "
+                                 f"{row['n_valid_oracle']} valid events, "
+                                 f"ACCURACY.json {ref['n_valid_oracle']}")
+        gap = row["valid_agreement"] - ref["valid_agreement"]
+        print(f"[accuracy] {preset} port {json.dumps(row)} card {smi}",
+              flush=True)
+        print(f"[accuracy] {preset} ACCURACY.json (backend tpu) "
+              f"{json.dumps(ref)}", flush=True)
+        if not abs(gap) <= ACCURACY_SLACK:
+            raise AssertionError(f"accuracy {preset}: validity agreement "
+                                 f"{row['valid_agreement']} against "
+                                 f"{ref['valid_agreement']}")
+        results[f"accuracy {preset}"] = (launches, len(ev) / dt)
+        _phase(f"accuracy {preset}", t0,
+               f"validity agreement {row['valid_agreement']:.6f} against "
+               f"ACCURACY.json's {ref['valid_agreement']:.6f} ({gap:+.6f}); "
+               f"scale match {row['scale_match']:.6f} against "
+               f"{ref['scale_match']:.6f}; AEE {row['aee_true_px_per_ms']} "
+               f"against {ref['aee_true_px_per_ms']} px/ms; launches "
+               f"{launches}")
+    return results
+
+
+def _with_env(env, fn):
+    """fn() with the environment variables `env` set, then restored."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _launched(label, run, needed=("local_flow", "aperture", "integral")):
+    """run() with every launch count set to 0 just before it; each
+    `needed` kernel must launch. Returns (run's result, the counts)."""
+    import torch
+    from farms_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    result = run()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if min(launches[k] for k in needed) < 1:
+        raise AssertionError(f"{label}: launch counts {launches}")
+    return result, launches
+
+
+def check_driver(smi):
+    """Phase 18: the benchmark line (farms_tpu_torch/bench/driver.py) at
+    DRIVER_ENV's reduced call counts: one JSON line with the three lanes,
+    printed with the card, every rate positive and the fidelity lane's
+    agreement in (0, 1]. Returns {label: (launches, events/s)}."""
+    from farms_tpu_torch.bench import driver
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+
+    def run():
+        with contextlib.redirect_stdout(buf):
+            return _with_env(DRIVER_ENV, lambda: driver.main([]))
+
+    rc, launches = _launched("driver", run)
+    lines = buf.getvalue().strip().splitlines()
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"driver: rc {rc}, output {lines}")
+    line = json.loads(lines[0])
+    print(f"[driver] {lines[0]} card {smi}", flush=True)
+    rates = ("value", "e2e_events_per_second", "fidelity_events_per_second")
+    if (min(line[k] for k in rates) <= 0 or line["card"] != smi
+            or not 0 < line["fidelity_validity_agreement"] <= 1):
+        raise AssertionError(f"driver: {line}")
+    _phase("driver", t0, f"{DRIVER_ENV}: device lane {line['value']} ev/s, "
+           f"fidelity {line['fidelity_events_per_second']} ev/s (agreement "
+           f"{line['fidelity_validity_agreement']}), e2e "
+           f"{line['e2e_events_per_second']} ev/s; launches {launches}")
+    return {"driver": (launches, line["value"])}
+
+
+def check_device_sweep(smi):
+    """Phase 19: the device sweep (farms_tpu_torch/bench/device_sweep.py)
+    on DEVICE_SWEEP_CONFIGS, one JSON line each with the card. Returns
+    {label: (launches, events/s)}."""
+    from farms_tpu_torch.bench import device_sweep
+
+    results = {}
+    for config in DEVICE_SWEEP_CONFIGS:
+        t0 = time.perf_counter()
+        (line,), launches = _launched(
+            f"device sweep {config}",
+            lambda: list(device_sweep.sweep([config], device="cuda")))
+        print(f"[device sweep] {json.dumps(line)}", flush=True)
+        if line["device_ev_per_s"] <= 0 or line["card"] != smi:
+            raise AssertionError(f"device sweep: {line}")
+        label = "device sweep P={} A={} S={} C={}".format(*config)
+        results[label] = (launches, line["device_ev_per_s"])
+        _phase(label, t0, f"{line['device_ev_per_s']} events/s; launches "
+               f"{launches}")
+    return results
+
+
+def _scaling_rows(devices, replay_events):
+    """The scaling sweep (farms_tpu_torch/bench/scaling.py) at its default
+    configuration on `devices` ranks, every engine; each row printed.
+    Rows whose resident replay differs from process() raise in the
+    sweep."""
+    from farms_tpu_torch.bench import scaling
+    from farms_tpu_torch.config import FlowConfig
+    from farms_tpu_torch.events.io import synthetic_random_events
+
+    cfg = FlowConfig(width=1024, height=128, max_window=20, chunk_size=2048,
+                     steps_per_scan=4)
+    ev = synthetic_random_events(2048 * 4 * 8, width=1024, height=128,
+                                 rate_hz=5e6)
+    rows = scaling.sweep(cfg, ev, devices, device="cuda",
+                         replay_events=replay_events)
+    for name, rs in rows.items():
+        for r in rs:
+            if not r["events_per_sec"] > 0:
+                raise AssertionError(f"scaling {name}: {r}")
+    return rows
+
+
+def check_scaling(smi):
+    """Phase 20: the scaling sweep at N = 1 (the single engine, every
+    engine's first row): its resident replay bit for bit its process(),
+    its rate with the card. Returns {label: (launches, events/s)}."""
+    t0 = time.perf_counter()
+    rows, launches = _launched("scaling n=1",
+                               lambda: _scaling_rows([1], SCALING_REPLAY))
+    rate = rows["halo"][0]["events_per_sec"]
+    print(f"[scaling] n=1 {json.dumps(rows['halo'][0])} card {smi}",
+          flush=True)
+    _phase("scaling n=1", t0, f"FlowEngine process_resident at 1024 x 128: "
+           f"{rate} events/s, equal to process() bit for bit; launches "
+           f"{launches}")
+    return {"scaling n=1": (launches, rate)}
+
+
 def _cli_process(argv):
     """The CLI in a process of its own, whose ranks are its children:
     returns its [Benchmark Main] rate. On a timeout its whole process
@@ -2087,6 +2310,18 @@ def check_nccl(base, work, smi):
            f"rank; a replay from the start state gathered and decoded, "
            f"against the single engine's process(): {said}")
     t0 = time.perf_counter()
+    devices = [1] + [n for n in (2, 4) if n <= cards]
+    rows = _scaling_rows(devices, SCALING_REPLAY)
+    for name, rs in rows.items():
+        for r in rs[1:]:
+            print(f"[scaling] {name} n={r['devices']} {json.dumps(r)} card "
+                  f"{smi}", flush=True)
+            rates[f"scaling {name} n={r['devices']}"] = r["events_per_sec"]
+    _phase("nccl scaling", t0, f"the scaling sweep at N = {devices}: every "
+           f"engine's resident replay bit for bit its process(); lanes "
+           f"unlike the single engine "
+           f"{ {n: [r['lanes_unlike_single'] for r in rs] for n, rs in rows.items()} }")
+    t0 = time.perf_counter()
     rate, per_m, wall = _engine_rate(_make_engine("single", cfg), ev)
     _rate_line("single", "benchmark", 1, rate, per_m, wall, smi)
     rates["single benchmark ranks=1"] = rate
@@ -2327,6 +2562,10 @@ def main() -> int:
         paths["sparse benchmark"] = check_sparse(base, card_files, smi)
         paths.update(check_resident(base))
         paths.update(check_harness(smi))
+        paths.update(check_accuracy(smi))
+        paths.update(check_driver(smi))
+        paths.update(check_device_sweep(smi))
+        paths.update(check_scaling(smi))
         rates, nccl_paths = check_nccl(base, work, smi)
         paths.update(nccl_paths)
         paths["perevent benchmark"] = check_perevent_cli(base)

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import subprocess
 import tempfile
 import time
 from typing import Callable
@@ -53,18 +54,45 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _time_resident(engine: FlowEngine, ev, reps: int = 2) -> float:
+def require_device(device) -> torch.device:
+    """`device` as a torch.device; raises RuntimeError for cuda where CUDA
+    is not available (the measurement tools never fall back to the
+    CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but CUDA is not "
+                           "available (pass --device cpu to run the "
+                           "kernels' plain versions)")
+    return device
+
+
+def card(device) -> str | None:
+    """The card of a cuda `device` as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` gives it; None on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return subprocess.run(
+        ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def _time_resident(engine: FlowEngine, ev, reps: int = 2,
+                   target_events: int | None = None) -> float:
     """Best events/s over `reps` rounds of process_resident replays, each
-    round enough replays of the whole stream for TARGET_EVENTS events.
-    Before every replay the engine's state is set back to the one that
-    preceded the first call (no step modifies a state in place), outside
-    the timed window, so each replay does the work of the stream's first
-    pass; its time runs from a synchronized start to a synchronized
-    end."""
+    round enough replays of the whole stream for `target_events` events
+    (TARGET_EVENTS by default). Before every replay the engine's state is
+    set back to the one that preceded the first call (no step modifies a
+    state in place), outside the timed window, so each replay does the
+    work of the stream's first pass; its time runs from a synchronized
+    start to a synchronized end."""
     fn, n = engine.process_resident(ev)
     start = engine.state
     fn()                                     # warm-up
-    calls = max(1, -(-TARGET_EVENTS // n))
+    calls = max(1, -(-(target_events or TARGET_EVENTS) // n))
     best = 0.0
     for _ in range(reps):
         total = 0.0
