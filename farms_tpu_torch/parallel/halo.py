@@ -47,6 +47,7 @@ from farms_tpu_torch.pipeline.engine import (FlowEngine, _coarse,
                                              wire_n_main_rows, wire_pack)
 from farms_tpu_torch.state.surfaces import (SurfaceState, kill_stale_flow,
                                             kill_stale_flow_in_phase)
+from farms_tpu_torch.utils import tracing
 
 
 def _ring(sends, recvs, band: mesh.Axis) -> None:
@@ -679,7 +680,8 @@ class HaloFlowEngine(FlowEngine):
                   for call in calls]
         if self.rank:
             return None
-        return self._unpack(blocks, ev, nn, perm)
+        with tracing.span("halo.decode"):
+            return self._unpack(blocks, ev, nn, perm)
 
     def process_resident(self, ev: EventBatch):
         """The halo engine's FlowEngine.process_resident: the whole stream
@@ -699,30 +701,41 @@ class HaloFlowEngine(FlowEngine):
     def _halo_calls(self, ev: EventBatch, steps_per_call: int | None):
         """(n, perm, calls): pack_halo's stream, and a generator of each
         call's (this rank's batch int32 [spc, rows, lanes], its rows of
-        the center surfaces or None) on the device."""
+        the center surfaces or None) on the device.
+
+        While a profiler records (utils/tracing.py), the pack is the span
+        `halo.pack`, the layout vote `halo.vote` (on the host, the wait
+        for the slowest rank's pack) and each call's copies `halo.upload`;
+        `_run_halo_call`, `_gather` and process()'s decode are
+        `halo.launch`, `halo.gather` and `halo.decode`."""
         cfg = self.cfg
         n, rank = self.n_shards, self.rank
-        packed, nn, perm, centers = self.pack_halo(ev, steps_per_call)
+        with tracing.span("halo.pack"):
+            packed, nn, perm, centers = self.pack_halo(ev, steps_per_call)
         sharded = perm is not None
         if n > 1:
             # the layout is chosen from the stream alone; ranks that chose
             # differently would issue different collectives
-            votes = torch.tensor([int(sharded)], device=self.device)
-            dist.all_reduce(votes)
-            if int(votes) not in (0, n):
+            with tracing.span("halo.vote"):
+                votes = torch.tensor([int(sharded)], device=self.device)
+                dist.all_reduce(votes)
+                agreed = int(votes)
+            if agreed not in (0, n):
                 raise RuntimeError(f"ranks disagree on the batch layout "
-                                   f"({int(votes)} of {n} owner-sharded)")
+                                   f"({agreed} of {n} owner-sharded)")
         rows = cfg.array_width // n
 
         def calls():
             for c in range(packed.shape[0]):
                 chunk = packed[c][:, rank] if sharded else packed[c]
                 # each call's center surfaces travel with its own batch
-                yield (torch.from_numpy(np.ascontiguousarray(chunk)).to(
-                    self.device), None if centers is None else
-                    torch.from_numpy(np.ascontiguousarray(
-                        centers[c][:, rank * rows:(rank + 1) * rows])).to(
-                            self.device))
+                with tracing.span("halo.upload"):
+                    call = (torch.from_numpy(np.ascontiguousarray(chunk)).to(
+                        self.device), None if centers is None else
+                        torch.from_numpy(np.ascontiguousarray(
+                            centers[c][:, rank * rows:(rank + 1) * rows])).to(
+                                self.device))
+                yield call
 
         return nn, perm, calls()
 
@@ -732,14 +745,15 @@ class HaloFlowEngine(FlowEngine):
         chunk, t_c2 = call
         bs = self._bs if sharded else 0
         mains, auxs = [], []
-        for i, b in enumerate(chunk):
-            self.state, (main, aux) = _step(
-                self.state, b[0], b[1], b[2], b[4] != 0, self.cfg, self.band,
-                None if t_c2 is None else b[5] != 0,
-                None if t_c2 is None else t_c2[i], bs)
-            mains.append(main)
-            auxs.append(aux)
-        return torch.stack(mains), torch.stack(auxs)
+        with tracing.span("halo.launch"):
+            for i, b in enumerate(chunk):
+                self.state, (main, aux) = _step(
+                    self.state, b[0], b[1], b[2], b[4] != 0, self.cfg,
+                    self.band, None if t_c2 is None else b[5] != 0,
+                    None if t_c2 is None else t_c2[i], bs)
+                mains.append(main)
+                auxs.append(aux)
+            return torch.stack(mains), torch.stack(auxs)
 
     def _gather(self, main: torch.Tensor, aux: torch.Tensor, sharded: bool):
         """One call's wire block on rank 0 (host arrays), None elsewhere.
@@ -747,9 +761,10 @@ class HaloFlowEngine(FlowEngine):
         Each rank holds its lanes of every step: its owner-sharded
         segments, in rank order along the lane axis, or the replicated
         layout's summed lanes (gather_summed)."""
-        if sharded:
-            return gather_lanes(main, aux, self.band)
-        return gather_summed(main, aux, self.band, self.cfg.chunk_size)
+        with tracing.span("halo.gather"):
+            if sharded:
+                return gather_lanes(main, aux, self.band)
+            return gather_summed(main, aux, self.band, self.cfg.chunk_size)
 
     def _unpack(self, blocks, ev: EventBatch, nn: int, perm) -> FlowOutput:
         """Stream-order wire blocks from the gathered ones (JAX:

@@ -34,7 +34,7 @@ from farms_tpu_torch.state.surfaces import (SurfaceState, init_state,
                                             kill_stale_flow,
                                             kill_stale_flow_in_phase,
                                             pad_state, strip_state)
-from farms_tpu_torch.utils import nativeio
+from farms_tpu_torch.utils import nativeio, tracing
 
 # compact2 escape slots per micro-step: stamp deltas too large for the
 # word's field ride as exact (lane, delta) pairs
@@ -868,37 +868,39 @@ class FlowEngine:
         """Decode wire blocks [(main int32 [steps, C, m], aux uint8
         [steps, m])], or on the sparse wire [(aux uint8 [N], present
         lanes' vx/vy words, valid lanes' true-flow words)] (_fetch_sparse),
-        into the 11-column FlowOutput (first n lanes)."""
-        cfg = self.cfg
-        if cfg.wire == "sparse":
-            # re-expand the payloads to lane order (absent lanes are
-            # exactly 0) and clear the present bit for the scale decode
-            mains, auxs = [], []
-            for a, pp, pv in out_blocks:
-                vxw = np.zeros(a.size, np.int32)
-                vxw[(a & 0x40) != 0] = pp
-                tfw = np.zeros(a.size, np.int32)
-                tfw[(a & 0x80) != 0] = pv
-                mains.append(np.stack([vxw, tfw]))
-                auxs.append(a & np.uint8(0xBF))
-            main = np.concatenate(mains, axis=1)[:, :n]
-            aux = np.concatenate(auxs)[:n]
-        else:
-            C = wire_n_main_rows(cfg)
-            main = np.concatenate(
-                [mo.transpose(1, 0, 2).reshape(C, -1)
-                 for mo, _ in out_blocks], axis=1)[:, :n]
-            aux = np.concatenate(
-                [ao.reshape(-1) for _, ao in out_blocks])[:n]
-        cols = decode_wire_columns(main, aux, cfg)
-        t = (ev.t.astype(np.uint32) - self._t0).astype(np.uint32)
-        return FlowOutput(
-            x=ev.x.astype(np.int32),
-            y=ev.y.astype(np.int32),
-            t=t,
-            pol=ev.pol.astype(np.int32),
-            **cols,
-        )
+        into the 11-column FlowOutput (first n lanes); the span
+        `engine.decode` while a profiler records."""
+        with tracing.span("engine.decode"):
+            cfg = self.cfg
+            if cfg.wire == "sparse":
+                # re-expand the payloads to lane order (absent lanes are
+                # exactly 0) and clear the present bit for the scale decode
+                mains, auxs = [], []
+                for a, pp, pv in out_blocks:
+                    vxw = np.zeros(a.size, np.int32)
+                    vxw[(a & 0x40) != 0] = pp
+                    tfw = np.zeros(a.size, np.int32)
+                    tfw[(a & 0x80) != 0] = pv
+                    mains.append(np.stack([vxw, tfw]))
+                    auxs.append(a & np.uint8(0xBF))
+                main = np.concatenate(mains, axis=1)[:, :n]
+                aux = np.concatenate(auxs)[:n]
+            else:
+                C = wire_n_main_rows(cfg)
+                main = np.concatenate(
+                    [mo.transpose(1, 0, 2).reshape(C, -1)
+                     for mo, _ in out_blocks], axis=1)[:, :n]
+                aux = np.concatenate(
+                    [ao.reshape(-1) for _, ao in out_blocks])[:n]
+            cols = decode_wire_columns(main, aux, cfg)
+            t = (ev.t.astype(np.uint32) - self._t0).astype(np.uint32)
+            return FlowOutput(
+                x=ev.x.astype(np.int32),
+                y=ev.y.astype(np.int32),
+                t=t,
+                pol=ev.pol.astype(np.int32),
+                **cols,
+            )
 
     def array_centers(self, centers: np.ndarray) -> np.ndarray:
         """pack_r2's [..., W, H] center surfaces at the array geometry
@@ -919,37 +921,54 @@ class FlowEngine:
         False skips pack_wesc (a step that always scatters the epoch);
         `center_rows` and `center_cols` are the cells of the center
         surfaces a rank uploads; `rows5` packs the explicit 5-row layout
-        instead of the delta-coded words (pack2)."""
-        if rows5:
-            packed, _ = self.pack(ev, steps_per_call=steps_per_call)
-            aux2 = None
-        else:
-            packed, aux2, _ = self.pack2(ev, steps_per_call=steps_per_call)
+        instead of the delta-coded words (pack2).
+
+        While a profiler records (utils/tracing.py), each packer is a span
+        (`engine.pack`, `engine.pack_wesc`, `engine.pack_r2`), each call's
+        copies to the device one `engine.upload`, and the counters
+        `engine.calls` and `engine.epoch_calls` (dense calls without
+        escapes, which take the epoch scatter) count the calls."""
+        with tracing.span("engine.pack"):
+            if rows5:
+                packed, _ = self.pack(ev, steps_per_call=steps_per_call)
+                aux2 = None
+            else:
+                packed, aux2, _ = self.pack2(ev,
+                                             steps_per_call=steps_per_call)
         # the escapes of the derived `written` exist on the dense path only
-        wesc, w_ok = (self.pack_wesc(ev, steps_per_call=steps_per_call)
-                      if self.cfg.use_dense and derived_written
-                      else (None, None))
-        r2 = (self.pack_r2(ev, steps_per_call=steps_per_call)
-              if self.cfg.center_correction else None)
+        wesc, w_ok = None, None
+        if self.cfg.use_dense and derived_written:
+            with tracing.span("engine.pack_wesc"):
+                wesc, w_ok = self.pack_wesc(ev, steps_per_call=steps_per_call)
+        r2 = None
+        if self.cfg.center_correction:
+            with tracing.span("engine.pack_r2"):
+                r2 = self.pack_r2(ev, steps_per_call=steps_per_call)
         dev = self.device
         for c in range(packed.shape[0]):
-            chunk = {"ev": torch.from_numpy(packed[c]).to(dev)}
-            if aux2 is not None:
-                chunk["base"] = torch.from_numpy(aux2[0][c]).to(dev)
-                chunk["esc"] = torch.from_numpy(aux2[1][c]).to(dev)
-            if wesc is not None and w_ok[c]:
-                chunk["wesc"] = torch.from_numpy(wesc[c]).to(dev)
-            if r2 is not None:
-                chunk["r2f"] = torch.from_numpy(r2[0][c]).to(dev)
-                chunk["r2c"] = torch.from_numpy(np.ascontiguousarray(
-                    self.array_centers(r2[1][c])[:, center_rows,
-                                                 center_cols])).to(dev)
+            with tracing.span("engine.upload"):
+                chunk = {"ev": torch.from_numpy(packed[c]).to(dev)}
+                if aux2 is not None:
+                    chunk["base"] = torch.from_numpy(aux2[0][c]).to(dev)
+                    chunk["esc"] = torch.from_numpy(aux2[1][c]).to(dev)
+                if wesc is not None and w_ok[c]:
+                    chunk["wesc"] = torch.from_numpy(wesc[c]).to(dev)
+                if r2 is not None:
+                    chunk["r2f"] = torch.from_numpy(r2[0][c]).to(dev)
+                    chunk["r2c"] = torch.from_numpy(np.ascontiguousarray(
+                        self.array_centers(r2[1][c])[:, center_rows,
+                                                     center_cols])).to(dev)
+            tracing.count("engine.calls")
+            if self.cfg.use_dense and "wesc" not in chunk:
+                tracing.count("engine.epoch_calls")
             yield chunk
 
     def _run_call(self, chunk: dict):
         """One call's micro-steps; returns the call's wire blocks on the
-        device."""
-        self.state, out = scan_chunk(self.state, chunk, self.cfg)
+        device. The span `engine.launch` is the host's time enqueuing
+        them (and waiting where a step reads the device)."""
+        with tracing.span("engine.launch"):
+            self.state, out = scan_chunk(self.state, chunk, self.cfg)
         return out
 
     def process(self, ev: EventBatch,
@@ -967,10 +986,13 @@ class FlowEngine:
         blocks = []
         for chunk in self.device_calls(ev, steps_per_call):
             main, aux = self._run_call(chunk)
-            if self.cfg.wire == "sparse":
-                blocks.append(_fetch_sparse(_sparse_pack_outputs(main, aux)))
-            else:
-                blocks.append((main.cpu().numpy(), aux.cpu().numpy()))
+            # `engine.fetch` includes the wait for the call's device work
+            with tracing.span("engine.fetch"):
+                if self.cfg.wire == "sparse":
+                    blocks.append(_fetch_sparse(_sparse_pack_outputs(main,
+                                                                     aux)))
+                else:
+                    blocks.append((main.cpu().numpy(), aux.cpu().numpy()))
         return self._unpack_outputs(blocks, ev, n)
 
     def process_resident(self, ev: EventBatch):

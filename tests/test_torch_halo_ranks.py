@@ -67,3 +67,20 @@ def resident_runs(cfg, ev, device="cpu"):
         outs.append(None if block is None
                     else eng._unpack([block], ev, n, perm))
     return outs
+
+
+def traced_process(cfg, ev, steps_per_call=None, device="cpu"):
+    """HaloFlowEngine.process(ev, steps_per_call) on this rank's group
+    under a CPU profiler. Returns (output, the stage totals, the profiler's range
+    names of the port) of rank 0."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from farms_tpu_torch.utils import tracing
+    eng = HaloFlowEngine(cfg, device=device)
+    tracing.reset()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = eng.process(ev, steps_per_call)
+    names = sorted({e.name for e in prof.events()
+                    if e.name.startswith(tracing.PREFIX)})
+    return out, tracing.totals(), names
