@@ -36,7 +36,12 @@ Phases, each printed with its result and seconds:
    bytes bound and the chain bound; the aperture pass (integral and
    pool; the pool's own device time,
    bound and share beside it, and the L2 bytes its design reads a pass)
-   with 11 scales and once at 260 x 346 with the y-clamp quirk;
+   with 11 scales and once at 260 x 346 with the y-clamp quirk; the wire
+   decode (decode_wire) against decode_wire_columns on a 131,072-lane
+   call of the f16 and the f32 wire and on an unaligned tail of it (the
+   kernel's lane path), and on a 1,048,576-lane f16 wire its wrapper
+   time, its device time with the L2 cache flushed, NumPy's host time and
+   its bytes bound (9 bytes read, 28 written a lane);
 3. the kernels' halo modes (the row shards of the halo engine,
    farms_tpu_torch/parallel/halo.py) at 320 x 320 cut into 1, 2 and 4
    bands (320, 160 and 80 rows: the shards of `--devices 1`, 2 and 4):
@@ -105,7 +110,7 @@ Phases, each printed with its result and seconds:
    alone, after the build);
 9. `--backend perevent --preset benchmark` through the CLI on the same
    stream, card against CPU as in 5: 16 integral launches (8 steps x 2
-   phases) and none of the other kernels;
+   phases), 8 wire decodes (one a call) and none of the other kernels;
 10. `--SERIAL 1 --numEvents 4096` through the CLI on the card and the CPU:
    one `Local` line per event and one `true` line per valid event
    (captured), the [Benchmark Main] line and no output file; then the
@@ -200,13 +205,25 @@ APERTURE_NAMES = ("tvx", "tvy", "scale")
 FLOW_COLUMNS = ("x", "y", "t", "pol", "r_true", "theta_true", "vx", "vy",
                 "r_local", "theta_local", "scale")
 NCCL_TIMEOUT = 600          # seconds for one multi-rank CLI run
-# each kernel's CUDA source and the Pallas kernel it replaces
-# (the integral replaces the XLA cumsum that aperture_pallas runs before
-# its Pallas kernel)
-KERNEL_SOURCES = {"local_flow": ("local_flow.cu", 434),
-                  "local_flow_general": ("local_flow.cu", 171),
-                  "aperture": ("aperture.cu", 640),
-                  "integral": ("aperture.cu", 733)}
+# each kernel's CUDA source and what it replaces in the JAX package: a
+# Pallas kernel, the XLA cumsum that aperture_pallas runs before its
+# Pallas kernel (the integral), or the host's NumPy decode of the wire
+# (decode_wire)
+_PALLAS = "farms_tpu/ops/pallas/kernels.py"
+KERNEL_SOURCES = {"local_flow": ("local_flow.cu", f"{_PALLAS}:434"),
+                  "local_flow_general": ("local_flow.cu", f"{_PALLAS}:171"),
+                  "aperture": ("aperture.cu", f"{_PALLAS}:640"),
+                  "integral": ("aperture.cu", f"{_PALLAS}:733"),
+                  "decode_wire": ("wire.cu", "farms_tpu/pipeline/engine.py:"
+                                  "1349 (decode_wire_columns, host)")}
+# the decode_wire checks: lanes a call on the main path, the unaligned
+# tail's offset and count (the kernel's lane path), the lanes of a
+# gen4hd replay batch (8 calls) for its times; atan2f's largest error in
+# the CUDA Math API, in ulps
+WIRE_CALL_LANES = 131072
+WIRE_TAIL = (3, 100003)
+WIRE_TIMED_LANES = 1 << 20
+ATAN2F_ULP = 3
 BAND_COUNTS = (1, 2, 4)     # row shards of the halo-mode kernel checks
 # (W, H, grids) of the tile-mode kernel checks: the sensor in (2, 2) and
 # (4, 2) tiles, and 260 x 346 (where the quirk moves the pool's y clamp)
@@ -798,10 +815,173 @@ def check_kernels(dev):
                f"corners {win_b / 1e6:.2f} MB ({n_won} pixels), against "
                f"{W * H * cfg.num_scales * 128 / 1e6:.2f} MB read corner by "
                f"corner for 4 fields")
+    results["decode_wire"], errs["decode_wire"] = check_decode_wire(dev)
     for name, r in results.items():
         r["max_abs_err"] = errs[name]
         r["share"] = _share(r)
     return results
+
+
+def _wire(rng, steps: int, k: int, C: int):
+    """A seeded wire (int32 [steps, C, k], uint8 [steps, k]) of the main
+    path's kind: flow components up to 3000 px/s in magnitude, zero at a
+    third of the lanes, and a hundredth of them NaN, +-Inf, +-0 or
+    subnormal; every aux byte. f16 halves packed in pairs (C = 2) or f32
+    words (C = 4)."""
+    n = steps * k
+    comp = rng.uniform(-3000, 3000, (4, n)).astype(np.float32)
+    comp[rng.random((4, n)) < 0.33] = 0
+    special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-7, -3e-8],
+                       np.float32)
+    pick = rng.random((4, n)) < 0.01
+    comp[pick] = special[rng.integers(0, special.size, int(pick.sum()))]
+    if C == 2:
+        h = comp.astype(np.float16).view(np.uint16).astype(np.uint32)
+        words = np.stack([h[0] | h[1] << 16, h[2] | h[3] << 16])
+    else:
+        words = comp.view(np.uint32)
+    main = np.ascontiguousarray(
+        words.view(np.int32).reshape(C, steps, k).transpose(1, 0, 2))
+    aux = rng.permutation(np.tile(np.arange(256, dtype=np.uint8),
+                                  -(-n // 256))[:n])
+    return main, aux.reshape(steps, k)
+
+
+def _wire_columns_against(label, block, want, main, C):
+    """decode_wire's [7, count] block (host) against decode_wire_columns'
+    columns `want` of the same wire (main rows [C, count]): vx, vy and
+    scale bit for bit, r_true and r_local bit for bit but for NaN payloads
+    (the same lanes NaN), theta_true and theta_local within ATAN2F_ULP
+    ulps of float64 atan2 with NumPy's NaNs and signs. Returns the largest
+    absolute difference from NumPy's columns on lanes not NaN."""
+    from farms_tpu_torch.ops import kernels
+    got = {name: block[r].view(np.int32) if name == "scale" else block[r]
+           for r, name in enumerate(kernels.WIRE_COLUMNS)}
+    for name in ("vx", "vy", "scale"):
+        if got[name].tobytes() != want[name].tobytes():
+            raise AssertionError(f"{label} {name}: differs from "
+                                 f"decode_wire_columns")
+    if C == 2:
+        u = main.view(np.uint32)
+        comp = [(u[r // 2] >> (16 * (r % 2)) & 0xFFFF).astype(np.uint16)
+                .view(np.float16).astype(np.float64) for r in range(4)]
+    else:
+        comp = [main[r].view(np.float32).astype(np.float64)
+                for r in range(4)]
+    err = 0.0
+    for name, y, x in (("r_true", None, None), ("r_local", None, None),
+                       ("theta_true", comp[3], comp[2]),
+                       ("theta_local", comp[1], comp[0])):
+        g, w = got[name], want[name]
+        nan = np.isnan(w)
+        if not (np.isnan(g) == nan).all():
+            raise AssertionError(f"{label} {name}: NaN lanes differ")
+        g, w = g[~nan], w[~nan]
+        with np.errstate(invalid="ignore"):         # inf - inf where equal
+            err = max(err, float(np.where(g == w, 0.0, np.abs(
+                g.astype(np.float64) - w)).max(initial=0)))
+        if y is None:
+            if g.tobytes() != w.tobytes():
+                raise AssertionError(f"{label} {name}: differs from "
+                                     f"decode_wire_columns")
+            continue
+        if not (np.signbit(g) == np.signbit(w)).all():
+            raise AssertionError(f"{label} {name}: signs differ")
+        # theta_local is 0 on invalid lanes: held against 0 there
+        with np.errstate(invalid="ignore"):
+            ref = np.where(w == 0, 0.0, np.arctan2(y, x)[~nan])
+        ulp = np.spacing(np.abs(ref).astype(np.float32)).astype(np.float64)
+        worst = float((np.abs(g - ref) / ulp).max(initial=0))
+        if worst > ATAN2F_ULP:
+            raise AssertionError(f"{label} {name}: {worst} ulps from "
+                                 f"atan2")
+    return err
+
+
+def check_decode_wire(dev):
+    """Phase 2's wire decode: decode_wire on the card against its plain
+    version, decode_wire_columns (NumPy), on the same wire: a main-path
+    call (WIRE_CALL_LANES lanes) of the f16 and the f32 wire, and an
+    unaligned tail of it (WIRE_TAIL: the lane path), one launch and one
+    device kernel a call; then, on the f16 wire of a replay batch
+    (WIRE_TIMED_LANES in 8 calls' steps), the wrapper's CUDA-event time,
+    the kernel's device time with the L2 cache flushed by a read before
+    each launch, NumPy's time on the host, and the bytes bound (9 bytes
+    read, 28 written a lane). Returns (that case's entry, the largest max
+    abs error)."""
+    import torch
+    from farms_tpu_torch.config import FlowConfig
+    from farms_tpu_torch.ops import dense_flow as plain
+    from farms_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(17)
+    err = 0.0
+    for C in (2, 4):
+        t0 = time.perf_counter()
+        cfg = FlowConfig(wire="f32" if C == 4 else "f16")
+        main, aux = _wire(rng, 1, WIRE_CALL_LANES, C)
+        dm, da = (torch.from_numpy(a).to(dev) for a in (main, aux))
+        flat = main.transpose(1, 0, 2).reshape(C, -1)
+        for label, (offset, count) in (("call", (0, WIRE_CALL_LANES)),
+                                       ("unaligned tail", WIRE_TAIL)):
+            out = torch.full((7, offset + count), float("nan"), device=dev)
+            kernels.reset_launches()
+            kernels.decode_wire(dm, da, out, offset, count, cfg.window_jump)
+            if kernels.LAUNCHES["decode_wire"] != 1 or sum(
+                    kernels.LAUNCHES.values()) != 1:
+                raise AssertionError(f"decode_wire: launches "
+                                     f"{kernels.LAUNCHES}")
+            want = plain.decode_wire_columns(flat[:, :count],
+                                             aux.reshape(-1)[:count], cfg)
+            block = out.cpu().numpy()
+            if not np.isnan(block[:, :offset]).all():
+                raise AssertionError("decode_wire wrote before its offset")
+            err = max(err, _wire_columns_against(
+                f"decode_wire {cfg.wire} {label}", block[:, offset:].copy(),
+                want, flat[:, :count], C))
+        n = _kernels_per_call(lambda: kernels.decode_wire(
+            dm, da, out, 0, WIRE_TAIL[1], cfg.window_jump), calls=10)
+        if not 0 < n <= 10:
+            raise AssertionError(f"decode_wire: {n} device kernels in 10 "
+                                 f"calls")
+        _phase(f"kernel decode_wire {cfg.wire}", t0,
+               f"a call of {WIRE_CALL_LANES} lanes and an unaligned tail "
+               f"({WIRE_TAIL[1]} lanes at column {WIRE_TAIL[0]}): vx, vy, "
+               f"scale, r_true, r_local equal to decode_wire_columns (NaN "
+               f"lanes as NaN), theta within {ATAN2F_ULP} ulps of atan2; "
+               f"max_abs_err {err}; one device kernel, {n} recorded in 10 "
+               f"calls")
+    t0 = time.perf_counter()
+    cfg = FlowConfig(wire="f16")
+    n = WIRE_TIMED_LANES
+    main, aux = _wire(rng, 8, n // 8, 2)
+    dm, da = (torch.from_numpy(a).to(dev) for a in (main, aux))
+    out = torch.empty((7, n), device=dev)
+    flush = torch.zeros(128 << 20, dtype=torch.uint8, device=dev)
+
+    def run():
+        return kernels.decode_wire(dm, da, out, 0, n, cfg.window_jump)
+
+    def flushed():
+        flush.max()
+        return run()
+
+    ms = _median_ms(run)
+    device_ms = _device_ms(flushed, "decode_wire")
+    flat = main.transpose(1, 0, 2).reshape(2, -1)
+    host = []
+    for _ in range(5):
+        s0 = time.perf_counter()
+        plain.decode_wire_columns(flat, aux.reshape(-1), cfg)
+        host.append(time.perf_counter() - s0)
+    plain_ms = float(np.median(host)) * 1e3
+    bound = _bound(37 * n, 0)
+    _phase("kernel decode_wire timed", t0,
+           f"{n} lanes of the f16 wire: kernel {ms:.4f} ms (CUDA events, "
+           f"warm L2; device, L2 flushed {_fmt_ms(device_ms)}), NumPy "
+           f"{plain_ms:.4f} ms on the host; bytes bound "
+           f"{bound['bound_ms']:.6f} ms")
+    return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms, **bound), err
 
 
 def _band(arr, nb: int, i: int, h: int):
@@ -1147,7 +1327,8 @@ def check_oracle(dev):
     """Phase 4: chunk_size=1 on the card reproduces the float64 oracle:
     the dense engine, the per-event engine (use_dense=False) and the serial
     engine. The per-event paths run one integral launch per micro-step
-    (the last call's padding steps too) or, in serial mode, per valid
+    (the last call's padding steps too) and the per-event engine one wire
+    decode a call, or, in serial mode, one integral launch per valid
     event, and no other kernel."""
     from farms_tpu_torch.config import FlowConfig
     from farms_tpu_torch.events.io import synthetic_translating_bar
@@ -1166,7 +1347,8 @@ def check_oracle(dev):
         ("oracle chunk_size=1", None,
          lambda: FlowEngine(cfg, device=dev).process(ev)),
         ("oracle perevent chunk_size=1",
-         {"integral": -(-len(ev) // spc) * spc},
+         {"integral": -(-len(ev) // spc) * spc,
+          "decode_wire": -(-len(ev) // spc)},
          lambda: FlowEngine(dataclasses.replace(cfg, use_dense=False),
                             device=dev).process(ev)),
         ("oracle serial", {"integral": n_valid},
@@ -1277,11 +1459,13 @@ def _stream_argv(base, preset):
 
 
 def _preset_launches(steps):
-    """Launches of `steps` micro-steps at each preset: 2 sub-phases per
-    step, each a local-flow and an aperture pass (an integral and a pool);
-    the fidelity preset adds one correction-mode local-flow pass per
-    step."""
-    ap = {"aperture": 2 * steps, "integral": 2 * steps}
+    """Launches of `steps` micro-steps at each preset through process():
+    2 sub-phases per step, each a local-flow and an aperture pass (an
+    integral and a pool), and the wire's decode on the card once a call
+    (a call holds one step at chunk 131072); the fidelity preset adds one
+    correction-mode local-flow pass per step."""
+    ap = {"aperture": 2 * steps, "integral": 2 * steps,
+          "decode_wire": steps}
     return {"benchmark": {"local_flow": 2 * steps, **ap},
             "fidelity": {"local_flow": 3 * steps, **ap}}
 
@@ -1403,7 +1587,7 @@ def check_spatial_wide():
     run)."""
     from farms_tpu_torch.bench import harness
     from farms_tpu_torch.parallel import SpatialFlowEngine
-    from farms_tpu_torch.pipeline.engine import FlowEngine
+    from farms_tpu_torch.pipeline.engine import FlowEngine, call_steps
 
     t0 = time.perf_counter()
     cfg, ev = harness.config5_inputs()
@@ -1414,7 +1598,8 @@ def check_spatial_wide():
     steps = -(-len(ev) // cfg.chunk_size)
     want = {"local_flow": steps * cfg.sub_phases,
             "aperture": steps * cfg.sub_phases,
-            "integral": steps * cfg.sub_phases}
+            "integral": steps * cfg.sub_phases,
+            "decode_wire": -(-steps // call_steps(cfg))}
     (got, wall), launches = _counted(
         "spatial 1280x720", lambda: _timed(lambda: eng.process(ev)), want)
     _same_columns("spatial 1280x720 (against the single engine)", got, ref)
@@ -1620,20 +1805,23 @@ def check_sparse(base, card_files, smi):
         eng = teng.FlowEngine(dc.replace(cfg, wire=wire), device="cuda")
         eng.process(ev[:2 * 131072])                 # warm-up
         eng.reset()
-        unpack = eng._unpack_outputs
+        decode[wire].append(0.0)
+        # the f16 wire decodes each call on the card, then builds the
+        # output; the sparse wire re-expands its blocks on the host first
+        for name in (("_unpack_outputs",) if wire == "sparse" else
+                     ("_decode_call", "_flow_output")):
+            def timed(*a, _fn=getattr(eng, name)):
+                out, secs = _timed(lambda: _fn(*a))
+                decode[wire][-1] += secs
+                return out
 
-        def timed_unpack(*a):
-            out, secs = _timed(lambda: unpack(*a))
-            decode[wire].append(secs)
-            return out
-
-        eng._unpack_outputs = timed_unpack
+            setattr(eng, name, timed)
         torch.cuda.synchronize()
         _, wall = _timed(lambda: eng.process(ev))
         rates[wire].append(len(ev) / wall)
     line = (f"[rates] wire f16 / sparse, benchmark, warmed process(): "
             f"{np.mean(rates['f16']):.1f} / {np.mean(rates['sparse']):.1f} "
-            f"events/s (runs {rates}), of which host decode "
+            f"events/s (runs {rates}), of which decode "
             f"{np.mean(decode['f16']):.4f} / {np.mean(decode['sparse']):.4f} "
             f"s; device-to-host {f16_b:.3f} / {sparse_b:.3f} bytes per "
             f"event; card {smi}")
@@ -1666,9 +1854,9 @@ def check_resident(base):
         eng = FlowEngine(cfg, device="cuda")
         fn, n = eng.process_resident(ev)
         start = eng.state
-        (main, aux), launches = _counted(f"resident {preset}", fn, want)
-        got = eng._unpack_outputs([(main.cpu().numpy(), aux.cpu().numpy())],
-                                  ev, n)
+        (main, aux), launches = _counted(f"resident {preset}", fn,
+                                         {**want, "decode_wire": 0})
+        got = eng._unpack_outputs([(main, aux)], ev, n)
         _same_columns(f"resident {preset}", got, ref)
         eng.state = start
         torch.cuda.synchronize()
@@ -2346,13 +2534,14 @@ def check_nccl(base, work, smi):
 def check_perevent_cli(base):
     """`--backend perevent --preset benchmark` through the CLI on the
     card and the CPU: the per-event path runs the integral kernel once a
-    phase (8 steps x 2 phases) and no other kernel. Returns (launches,
-    rate)."""
+    phase (8 steps x 2 phases), the wire's decode once a call, and no
+    other kernel. Returns (launches, rate)."""
     steps = STREAM_EVENTS // 131072
     return _cli_path("perevent benchmark",
                      _stream_argv(base, "benchmark") + ["--backend",
                                                         "perevent"],
-                     base, STREAM_EVENTS, {"integral": 2 * steps})
+                     base, STREAM_EVENTS, {"integral": 2 * steps,
+                                           "decode_wire": steps})
 
 
 def check_serial_cli(base, dev):
@@ -2574,7 +2763,7 @@ def main() -> int:
         path_rates.update(check_engine_rates(base, smi))
     rates.update({label: rate for label, (_, rate) in paths.items()})
     entries = []
-    for name, (src, line) in KERNEL_SOURCES.items():
+    for name, (src, replaces) in KERNEL_SOURCES.items():
         by_path = {label: counts[name]
                    for label, (counts, _) in paths.items()}
         halo = {f"halo{k}" if k.startswith("1_") else f"halo_{k}": v
@@ -2584,7 +2773,7 @@ def main() -> int:
         entries.append(dict(
             name=name, route="cuda",
             source=f"farms_tpu_torch/csrc/{src}",
-            replaces=f"farms_tpu/ops/pallas/kernels.py:{line}",
+            replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
             library_ms=timings[name].pop("library_ms", None),
             **timings[name], **halo))

@@ -109,7 +109,7 @@ def resident_output(eng, ev) -> FlowOutput | None:
         if not eng._returns_output():
             return None
     else:
-        block = (main.cpu().numpy(), aux.cpu().numpy())
+        block = (main, aux)
     return None if block is None else eng._unpack_outputs([block], ev, n)
 
 

@@ -18,7 +18,7 @@ import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = ("local_flow.cu", "aperture.cu")
+SOURCES = ("local_flow.cu", "aperture.cu", "wire.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
@@ -45,6 +45,8 @@ _SIGNATURES = {
                              _IP),
     # flow_len, flow_vx, flow_vy, rows, cols, integ, stream
     "farms_integral": (_P, _P, _P, _I, _I, _P, _P),
+    # main, aux, rows, lanes, count, jump, out, stride, offset, stream
+    "farms_decode_wire": (_P, _P, _I, _I, _I, _I, _P, _I, _I, _P),
 }
 
 _lib = None

@@ -4,7 +4,10 @@ Counterpart of `farms_tpu.ops.dense_flow`. These are the plain versions of
 the CUDA kernels (ops/kernels.py): the CPU path, and the reference the
 kernels are checked against on the card. Each function computes in the
 same order as its kernel (left folds over the same cell order, divisions
-by a device tensor), so on one device the two agree bitwise.
+by a device tensor), so on one device the two agree bitwise. The last,
+`decode_wire_columns`, is in NumPy: the wire's decode into the output
+columns (csrc/wire.cu's plain version), bit for bit JAX's
+`farms_tpu.pipeline.engine.decode_wire_columns`.
 
 Per-event quantities are recomputed as dense maps over the whole sensor:
 the per-pixel center time is the latest write at that pixel, the causal
@@ -19,6 +22,7 @@ vFlow.cpp:1214-1381, computeTrueFlow vFlow.cpp:952-1210.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -428,3 +432,45 @@ def onehot_gather(maps: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     flat = maps.reshape(maps.shape[0], W * H)
     flat = torch.cat([flat, flat.new_zeros((maps.shape[0], 1))], 1)
     return flat[:, x.to(torch.int64) * H + y.to(torch.int64)]
+
+
+def decode_wire_columns(main, aux, cfg: FlowConfig) -> dict:
+    """Decode wire rows into the 7 per-lane output columns.
+
+    `main` is int32 [C, k] (C = wire_n_main_rows; f16 mode packs each
+    component pair into one int32), `aux` uint8 [k]. Returns the dict of
+    numpy columns {r_true, theta_true, vx, vy, r_local, theta_local,
+    scale}; the magnitude/angle columns (vFlow.cpp:370-396) are f32
+    functions of the shipped components. Invalid lanes keep their raw
+    (possibly NaN) vx/vy and zeros elsewhere (vFlow.cpp:390-395); the true
+    components arrive pre-gated to 0.
+    """
+    if cfg.wire != "f32":
+        p0 = main[0].view(np.uint32)
+        p1 = main[1].view(np.uint32)
+        vx = (p0 & 0xFFFF).astype(np.uint16).view(np.float16).astype(np.float32)
+        vy = (p0 >> 16).astype(np.uint16).view(np.float16).astype(np.float32)
+        tvx = (p1 & 0xFFFF).astype(np.uint16).view(np.float16).astype(np.float32)
+        tvy = (p1 >> 16).astype(np.uint16).view(np.float16).astype(np.float32)
+    else:
+        vx = main[0].view(np.float32)
+        vy = main[1].view(np.float32)
+        tvx = main[2].view(np.float32)
+        tvy = main[3].view(np.float32)
+    valid = (aux & 0x80) != 0
+    scale = (aux & 0x7F).astype(np.int32) * cfg.window_jump
+    with np.errstate(invalid="ignore", over="ignore"):
+        r_true = np.sqrt(tvx * tvx + tvy * tvy)
+        theta_true = np.arctan2(tvy, tvx)
+        length = np.sqrt(vx * vx + vy * vy)
+        theta_l = np.arctan2(vy, vx)
+    zero = np.float32(0.0)
+    return dict(
+        r_true=r_true,
+        theta_true=theta_true,
+        vx=vx,
+        vy=vy,
+        r_local=np.where(valid, length, zero),
+        theta_local=np.where(valid, theta_l, zero),
+        scale=scale,
+    )

@@ -1,12 +1,13 @@
-"""Wrappers of the hand-written CUDA kernels for the dense path's two stages.
+"""Wrappers of the hand-written CUDA kernels: the dense path's two stages
+and the wire decode.
 
 Counterpart of `farms_tpu.ops.pallas.kernels`. The device of the input
 decides the path: a CPU tensor runs the plain PyTorch version
 (ops/dense_flow.py), a CUDA tensor launches the kernel
 (csrc/local_flow.cu: its streamed k = 3 and 5 instances, or the general
 kernel for any other odd k, each for any chain length; csrc/aperture.cu:
-the float64 integral and the pool) or raises. There is no fallback
-between the two.
+the float64 integral and the pool; csrc/wire.cu: the wire decoded into
+the output columns) or raises. There is no fallback between the two.
 
 Each wrapper counts its kernel launches in `LAUNCHES` (only where it
 launches; plain-path calls do not count), so a run can show that its main
@@ -18,15 +19,21 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from farms_tpu_torch.config import FlowConfig
 from farms_tpu_torch.ops import _build
 from farms_tpu_torch.ops.dense_flow import (aperture_y_clip, build_integral,
+                                            decode_wire_columns,
                                             dense_aperture, local_flow_core)
 
+# the rows of decode_wire's column block, in order
+WIRE_COLUMNS = ("r_true", "theta_true", "vx", "vy", "r_local", "theta_local",
+                "scale")
+
 LAUNCHES = {"local_flow": 0, "local_flow_general": 0, "aperture": 0,
-            "integral": 0}
+            "integral": 0, "decode_wire": 0}
 
 
 def reset_launches() -> None:
@@ -261,3 +268,51 @@ def aperture(flow_len: torch.Tensor, flow_vx: torch.Tensor,
     _raise_on(rc, "aperture")
     LAUNCHES["aperture"] += 1
     return tvx, tvy, scale
+
+
+def decode_wire(main: torch.Tensor, aux: torch.Tensor, out: torch.Tensor,
+                offset: int, count: int, window_jump: int) -> torch.Tensor:
+    """The seven output columns of a call's wire lanes 0 .. count - 1 into
+    columns offset .. offset + count - 1 of `out`, float32 [7, n]: rows
+    r_true, theta_true, vx, vy, r_local, theta_local, and scale as int32
+    bits. `main` int32 [steps, C, k] (C = 2, the f16 wire's pairs, or 4,
+    the f32 wire's words), `aux` uint8 [steps, k]; lane s * k + l is step
+    s's lane l. A CPU tensor runs the plain version, decode_wire_columns
+    (NumPy); a CUDA tensor launches the kernel, whose theta is atan2f's
+    (within its ulp bound) and whose other columns are bit for bit
+    NumPy's. Counted under "decode_wire", one per launch (none for count
+    0). Returns `out`."""
+    if main.dim() != 3 or main.shape[1] not in (2, 4):
+        raise ValueError(f"main must be [steps, 2 or 4, lanes], got "
+                         f"{tuple(main.shape)}")
+    if out.dim() != 2 or out.shape[0] != 7:
+        raise ValueError(f"out must be [7, n], got {tuple(out.shape)}")
+    steps, C, k = main.shape
+    dev = main.device
+    _check(main, "main", torch.int32, (steps, C, k), dev)
+    _check(aux, "aux", torch.uint8, (steps, k), dev)
+    _check(out, "out", torch.float32, tuple(out.shape), dev)
+    if not (0 <= count <= steps * k and 0 <= offset
+            and offset + count <= out.shape[1]):
+        raise ValueError(f"{count} lanes at column {offset} do not fit a "
+                         f"wire of {steps * k} lanes or out's "
+                         f"{out.shape[1]} columns")
+    if dev.type == "cpu":
+        cols = decode_wire_columns(
+            main.numpy().transpose(1, 0, 2).reshape(C, -1)[:, :count],
+            aux.numpy().reshape(-1)[:count],
+            FlowConfig(wire="f32" if C == 4 else "f16",
+                       window_jump=window_jump))
+        host = out.numpy()[:, offset:offset + count]
+        for r, name in enumerate(WIRE_COLUMNS):
+            host[r] = cols[name].view(np.float32)
+        return out
+    if dev.type != "cuda":
+        raise ValueError(f"no decode_wire kernel for device {dev}")
+    if count:
+        rc = _build.load().farms_decode_wire(
+            main.data_ptr(), aux.data_ptr(), C, k, count, window_jump,
+            out.data_ptr(), out.shape[1], offset, _stream(dev))
+        _raise_on(rc, "decode_wire")
+        LAUNCHES["decode_wire"] += 1
+    return out

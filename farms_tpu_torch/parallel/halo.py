@@ -489,10 +489,10 @@ def gather_lanes(main: torch.Tensor, aux: torch.Tensor, axis: mesh.Axis,
                  to_all: bool = False):
     """One call's wire blocks (int32 [steps, C, k], uint8 [steps, k]) of
     every rank on `axis`, laid end to end along the lane axis in axis
-    order, as host arrays: on the axis's first rank (None elsewhere), or
+    order, on the device: on the axis's first rank (None elsewhere), or
     with `to_all` on every rank."""
     if axis.size == 1:
-        return main.cpu().numpy(), aux.cpu().numpy()
+        return main, aux
     block = torch.cat([main, aux.to(torch.int32)[:, None]], 1)
     if to_all:
         parts = [torch.empty_like(block) for _ in range(axis.size)]
@@ -504,20 +504,19 @@ def gather_lanes(main: torch.Tensor, aux: torch.Tensor, axis: mesh.Axis,
         dist.gather(block, parts, dst=axis.ranks[0], group=axis.group)
         if not first:
             return None
-    block = torch.cat(parts, 2).cpu().numpy()
-    return block[:, :-1], block[:, -1].astype(np.uint8)
+    block = torch.cat(parts, 2)
+    return block[:, :-1].contiguous(), block[:, -1].to(torch.uint8)
 
 
 def gather_summed(main: torch.Tensor, aux: torch.Tensor, axis: mesh.Axis,
                   m: int):
     """One call's whole wire block of `_step`'s replicated lanes (bs = 0,
-    m a step, summed over `axis`) on the axis's first rank (host arrays),
-    None elsewhere: the ranks' reduce-scatter slices end to end in rank
-    order, or the first rank's own lanes where the all-reduce left every
-    rank all of them (the axis does not divide m)."""
+    m a step, summed over `axis`) on the axis's first rank (on the
+    device), None elsewhere: the ranks' reduce-scatter slices end to end
+    in rank order, or the first rank's own lanes where the all-reduce left
+    every rank all of them (the axis does not divide m)."""
     if m % axis.size:
-        return None if axis.index else (main.cpu().numpy(),
-                                        aux.cpu().numpy())
+        return None if axis.index else (main, aux)
     return gather_lanes(main, aux, axis)
 
 
@@ -756,7 +755,7 @@ class HaloFlowEngine(FlowEngine):
             return torch.stack(mains), torch.stack(auxs)
 
     def _gather(self, main: torch.Tensor, aux: torch.Tensor, sharded: bool):
-        """One call's wire block on rank 0 (host arrays), None elsewhere.
+        """One call's wire block on rank 0 (on the device), None elsewhere.
 
         Each rank holds its lanes of every step: its owner-sharded
         segments, in rank order along the lane axis, or the replicated
@@ -768,25 +767,26 @@ class HaloFlowEngine(FlowEngine):
 
     def _unpack(self, blocks, ev: EventBatch, nn: int, perm) -> FlowOutput:
         """Stream-order wire blocks from the gathered ones (JAX:
-        HaloFlowEngine._unpack_outputs), then the base decode."""
+        HaloFlowEngine._unpack_outputs), reordered on the blocks' device,
+        then the base decode."""
         if perm is None:
             return self._unpack_outputs(blocks, ev, nn)
         C = wire_n_main_rows(self.cfg)
         m = self.cfg.chunk_size
-        n = self.n_shards
-        gbs = perm.shape[3]
         out = []
         for c, (mo, ao) in enumerate(blocks):
             spc = mo.shape[0]
-            mo = mo.reshape(spc, C, n, gbs)
-            ao = ao.reshape(spc, n, gbs)
-            gm = np.zeros((spc, C, m), mo.dtype)
-            ga = np.zeros((spc, m), ao.dtype)
-            for s in range(spc):
-                for k in range(n):
-                    v = perm[c, s, k] >= 0
-                    gm[s][:, perm[c, s, k, v]] = mo[s][:, k, v]
-                    ga[s][perm[c, s, k, v]] = ao[s, k, v]
-            out.append((gm, ga))
+            p = torch.as_tensor(perm[c], device=mo.device)  # [spc, n, gbs]
+            held = p >= 0
+            # each segment lane's place in the call's stream-order lanes
+            lane = (torch.arange(spc, device=mo.device)[:, None, None] * m
+                    + p)[held]
+            gm = mo.new_zeros((C, spc * m))
+            gm[:, lane] = mo.reshape(spc, C, *p.shape[1:]).transpose(
+                0, 1)[:, held]
+            ga = ao.new_zeros(spc * m)
+            ga[lane] = ao.reshape(p.shape)[held]
+            out.append((gm.reshape(C, spc, m).transpose(0, 1), ga.reshape(
+                spc, m)))
         return self._unpack_outputs(out, ev, nn)
 

@@ -35,19 +35,15 @@ import torch
 from farms_tpu_torch.config import FlowConfig
 from farms_tpu_torch.events.io import (OUTPUT_SUFFIX, EventBatch,
                                        FlowOutput, write_flow_txt)
+from farms_tpu_torch.ops.kernels import WIRE_COLUMNS
 from farms_tpu_torch.parallel import mesh as meshlib
 from farms_tpu_torch.parallel.dp import ShardedFlowEngine
 from farms_tpu_torch.parallel.halo import (_step, band_of, gather_bands,
                                            gather_lanes)
 from farms_tpu_torch.parallel.mesh import (init_distributed,  # noqa: F401
                                            make_global_mesh)
-from farms_tpu_torch.pipeline.engine import (_decode_batch,
-                                             decode_wire_columns,
-                                             wire_n_main_rows)
+from farms_tpu_torch.pipeline.engine import _decode_batch
 from farms_tpu_torch.state.surfaces import SurfaceState
-
-_COLUMNS = ("r_true", "theta_true", "vx", "vy", "r_local", "theta_local",
-            "scale")
 
 
 class MultiHostFlowEngine(ShardedFlowEngine):
@@ -147,7 +143,8 @@ class MultiHostFlowEngine(ShardedFlowEngine):
         farms_tpu/parallel/multihost.py:240).
 
         Every rank processes the stream, decodes only the lanes it holds
-        after each step (`_held`) to the 7 wire columns and stages them
+        after each step (`_held`) to the 7 wire columns (as process()
+        decodes: on the card on a CUDA engine) and stages them
         to `<base_path>.part<rank>.npz` on the shared file system; after
         a barrier, rank 0 assembles the parts in lane order, writes the
         reference's 11-column text (vFlow.cpp:433-442) and removes the
@@ -157,27 +154,25 @@ class MultiHostFlowEngine(ShardedFlowEngine):
         cfg = self.cfg
         n = len(ev)
         m = cfg.chunk_size
-        C = wire_n_main_rows(cfg)
         lo, hi = self._held()[1]
         rows_l, cols_l = [], []
         step0 = 0
         for chunk in (self.device_calls(ev) if n else ()):
             main, aux = self._run_call(chunk)
-            main, aux = main.cpu().numpy(), aux.cpu().numpy()
             spc = main.shape[0]
             g = ((step0 + np.arange(spc))[:, None] * m
                  + np.arange(lo, hi)[None, :]).reshape(-1)
             step0 += spc
             keep = g < n
-            cols = decode_wire_columns(
-                main.transpose(1, 0, 2).reshape(C, -1)[:, keep],
-                aux.reshape(-1)[keep], cfg)
+            # g rises along the wire: the kept lanes are its first
+            cols, dev_cols = self._column_blocks(int(keep.sum()))
+            self._decode_call(main, aux, dev_cols, cols, 0)
             rows_l.append(g[keep])
             cols_l.append(cols)
         rank, world = meshlib.rank_and_size()
         payload = {"rows": (np.concatenate(rows_l) if rows_l
                             else np.zeros(0, np.int64))}
-        for key in _COLUMNS:
+        for key in WIRE_COLUMNS:
             # decode_wire_columns' dtypes where this rank holds no lane
             payload[key] = (np.concatenate([c[key] for c in cols_l])
                             if cols_l else np.zeros(0, np.int32 if key ==
@@ -186,7 +181,7 @@ class MultiHostFlowEngine(ShardedFlowEngine):
         meshlib.barrier()
         path = base_path + OUTPUT_SUFFIX
         if rank == 0:
-            full = {k: np.zeros(n, payload[k].dtype) for k in _COLUMNS}
+            full = {k: np.zeros(n, payload[k].dtype) for k in WIRE_COLUMNS}
             covered = np.zeros(n, bool)
             for p in range(world):
                 with np.load(f"{base_path}.part{p}.npz") as part:

@@ -149,7 +149,7 @@ class SpatialFlowEngine(FlowEngine):
         return torch.stack(mains), torch.stack(auxs)
 
     def _gather(self, main: torch.Tensor, aux: torch.Tensor):
-        """One call's whole wire block on rank 0 (host arrays), None
+        """One call's whole wire block on rank 0 (on the device), None
         elsewhere (the lanes are summed over the grid)."""
         return gather_summed(main, aux, self.mesh.grid, self.cfg.chunk_size)
 

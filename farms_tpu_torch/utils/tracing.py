@@ -20,6 +20,12 @@ the totals afterwards::
     # {"spans": {"engine.pack": [1, 0.012], ...},
     #  "counters": {"engine.calls": 8, ...}}
 
+The counters the engines keep: `engine.calls` and `engine.epoch_calls`
+(FlowEngine.device_calls: every call, and the dense calls that take the
+epoch scatter), `engine.decoded_lanes` (every lane decoded into output
+columns, on the host or on the card) and `engine.device_decoded_lanes`
+(the lanes the decode_wire kernel decoded).
+
 The totals are per process: the ranks of a sharded engine each keep
 their own. `reset()` clears them between profiler sessions.
 """

@@ -853,8 +853,9 @@ def test_cuda_aperture_batch_equals_cpu(cuda, quirk):
 def test_cuda_perevent_and_serial_engines_equal_cpu(cuda):
     """The per-event engine (chunk 256, 2 phases, f32 wire) and the serial
     engine on the card give the CPU's valid flags and scale ids on every
-    event, the first with one integral launch per phase, the second with
-    one per valid event, and no other kernel."""
+    event, the first with one integral launch per phase and one wire
+    decode a call, the second with one integral launch per valid event and
+    no other kernel."""
     from farms_tpu_torch.events.io import synthetic_translating_bar
     from farms_tpu_torch.pipeline.engine import FlowEngine
     from farms_tpu_torch.pipeline.serial import SerialFlowEngine
@@ -865,16 +866,17 @@ def test_cuda_perevent_and_serial_engines_equal_cpu(cuda):
                   steps_per_scan=2, use_dense=False)
     scfg = TConfig(width=64, height=64, chunk_size=1)
     runs = ((lambda d: FlowEngine(cfg, device=d).process(ev),
-             lambda out: 2 * 2 * -(-len(ev) // 512)),
+             lambda out: 2 * 2 * -(-len(ev) // 512), -(-len(ev) // 512)),
             (lambda d: SerialFlowEngine(scfg, device=d).run(ev[:500],
                                                             quiet=True)[0],
-             lambda out: int((out.r_local > 0).sum())))
-    for run, integrals in runs:
+             lambda out: int((out.r_local > 0).sum()), 0))
+    for run, integrals, decodes in runs:
         want = run("cpu")
         tk.reset_launches()
         got = run(cuda)
         assert tk.LAUNCHES == {**{k: 0 for k in tk.LAUNCHES},
-                               "integral": integrals(want)}
+                               "integral": integrals(want),
+                               "decode_wire": decodes}
         np.testing.assert_array_equal(got.r_local > 0, want.r_local > 0)
         np.testing.assert_array_equal(got.scale, want.scale)
         valid = want.r_local > 0

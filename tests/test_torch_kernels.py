@@ -305,4 +305,4 @@ def test_cpu_wrappers_do_not_count_launches():
                 TConfig(width=24, height=20))
     tk.integral(*(torch.from_numpy(a) for a in (fl, fvx, fvy)))
     assert tk.LAUNCHES == {"local_flow": 0, "local_flow_general": 0,
-                           "aperture": 0, "integral": 0}
+                           "aperture": 0, "integral": 0, "decode_wire": 0}

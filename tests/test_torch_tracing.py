@@ -91,7 +91,7 @@ def test_untraced_process_keeps_no_totals(stream):
 @pytest.mark.parametrize("preset", sorted(_PRESETS))
 def test_traced_process_opens_every_stage_span(stream, preset):
     """Each stage once a stream or once a call, as a profiler range and
-    a total; counters count the calls."""
+    a total; counters count the calls and the decoded lanes."""
     cfg = FlowConfig(**_PRESETS[preset])
     out, names = _traced(
         lambda: FlowEngine(cfg, device="cpu").process(stream, _SPC))
@@ -105,7 +105,9 @@ def test_traced_process_opens_every_stage_span(stream, preset):
     t = tracing.totals()
     assert {k: v[0] for k, v in t["spans"].items()} == want
     assert all(v[1] > 0 for v in t["spans"].values())
-    assert t["counters"] == {"engine.calls": calls}
+    # a CPU engine decodes every lane on the host
+    assert t["counters"] == {"engine.calls": calls,
+                             "engine.decoded_lanes": len(stream)}
     assert sorted(names) == sorted(
         tracing.PREFIX + k for k, v in want.items() for _ in range(v))
 
@@ -141,7 +143,8 @@ def test_overflowing_escapes_count_one_epoch_call():
     out, _ = _traced(lambda: eng.process(ev, steps_per_call=1))
     assert len(out) == len(ev)
     assert tracing.totals()["counters"] == {"engine.calls": 2,
-                                            "engine.epoch_calls": 1}
+                                            "engine.epoch_calls": 1,
+                                            "engine.decoded_lanes": len(ev)}
 
 
 def test_span_records_when_the_body_raises():
