@@ -13,7 +13,10 @@ Each wrapper counts its kernel launches in `LAUNCHES` (only where it
 launches; plain-path calls do not count), so a run can show that its main
 path went through the kernels; a kernel's halo-mode launches (the row
 shards of parallel/halo.py) and tile-mode launches (the 2-D tiles of
-parallel/tiling.py) count under the same name.
+parallel/tiling.py) count under the same name. While a torch profiler
+records, local_flow's card path is also the span kernels.local_flow
+(utils/tracing.py), and its general launches the counter
+kernels.local_flow_general_launches.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from farms_tpu_torch.ops import _build
 from farms_tpu_torch.ops.dense_flow import (aperture_y_clip, build_integral,
                                             decode_wire_columns,
                                             dense_aperture, local_flow_core)
+from farms_tpu_torch.utils import tracing
 
 # the rows of decode_wire's column block, in order
 WIRE_COLUMNS = ("r_true", "theta_true", "vx", "vy", "r_local", "theta_local",
@@ -146,36 +150,49 @@ def local_flow(chain: torch.Tensor, center: torch.Tensor, cfg: FlowConfig,
                                row_offset, col_halo, col_offset)
     if center.device.type != "cuda":
         raise ValueError(f"no local-flow kernel for device {center.device}")
-    R = cfg.support_radius
-    for h in (halo, col_halo):
-        if h and h < R:
-            raise ValueError(f"halo {h} < support_radius {R}")
-    dev = center.device
-    rows, cols = _band_extent(center, "center", cfg, halo, row_offset,
-                              col_halo, col_offset)
-    Xb, Yb = center.shape
-    _check(center, "center", torch.int32, (Xb, Yb), dev)
-    if chain.dim() != 3 or chain.shape[0] < 1:
-        raise ValueError(f"chain must be [S >= 1, {Xb}, {Yb}], got "
-                         f"{tuple(chain.shape)}")
-    _check(chain, "chain", torch.int32, (chain.shape[0], Xb, Yb), dev)
-    S = chain.shape[0]
-    k = cfg.filter_size
-    lib = _build.load()
-    accept = torch.empty((rows, cols), dtype=torch.int32, device=dev)
-    a = torch.empty((rows, cols), dtype=torch.float32, device=dev)
-    b = torch.empty_like(a)
-    dtdp = torch.empty_like(a)
-    cand = torch.empty_like(accept)
-    rc = lib.farms_local_flow(
-        chain.data_ptr(), S, int(fold_center), center.data_ptr(), Xb, rows,
-        halo, row_offset, Yb, cols, col_halo, col_offset, cfg.width,
-        cfg.height, k, cfg.min_evts_on_plane, cfg.det_threshold,
-        -cfg.ts_to_sec, accept.data_ptr(), a.data_ptr(), b.data_ptr(),
-        dtdp.data_ptr(), cand.data_ptr(), _stream(dev))
-    name = "local_flow" if k in (3, 5) else "local_flow_general"
-    _raise_on(rc, name)
-    LAUNCHES[name] += 1
+    return _launch_local_flow(chain, center, cfg, fold_center, halo,
+                              row_offset, col_halo, col_offset)
+
+
+def _launch_local_flow(chain, center, cfg, fold_center, halo, row_offset,
+                       col_halo, col_offset):
+    """local_flow's card path (the checks, the outputs' allocations and
+    the launch): the span kernels.local_flow; counted under "local_flow"
+    (k = 3, 5) or "local_flow_general", a general launch also under the
+    counter kernels.local_flow_general_launches."""
+    with tracing.span("kernels.local_flow"):
+        R = cfg.support_radius
+        for h in (halo, col_halo):
+            if h and h < R:
+                raise ValueError(f"halo {h} < support_radius {R}")
+        dev = center.device
+        rows, cols = _band_extent(center, "center", cfg, halo, row_offset,
+                                  col_halo, col_offset)
+        Xb, Yb = center.shape
+        _check(center, "center", torch.int32, (Xb, Yb), dev)
+        if chain.dim() != 3 or chain.shape[0] < 1:
+            raise ValueError(f"chain must be [S >= 1, {Xb}, {Yb}], got "
+                             f"{tuple(chain.shape)}")
+        _check(chain, "chain", torch.int32, (chain.shape[0], Xb, Yb), dev)
+        S = chain.shape[0]
+        k = cfg.filter_size
+        lib = _build.load()
+        accept = torch.empty((rows, cols), dtype=torch.int32, device=dev)
+        a = torch.empty((rows, cols), dtype=torch.float32, device=dev)
+        b = torch.empty_like(a)
+        dtdp = torch.empty_like(a)
+        cand = torch.empty_like(accept)
+        rc = lib.farms_local_flow(
+            chain.data_ptr(), S, int(fold_center), center.data_ptr(), Xb, rows,
+            halo, row_offset, Yb, cols, col_halo, col_offset, cfg.width,
+            cfg.height, k, cfg.min_evts_on_plane, cfg.det_threshold,
+            -cfg.ts_to_sec, accept.data_ptr(), a.data_ptr(), b.data_ptr(),
+            dtdp.data_ptr(), cand.data_ptr(), _stream(dev))
+        name = "local_flow" if k in (3, 5) else "local_flow_general"
+        _raise_on(rc, name)
+        LAUNCHES[name] += 1
+        if name == "local_flow_general":
+            tracing.count("kernels.local_flow_general_launches")
     return accept, a, b, dtdp, cand
 
 

@@ -20,11 +20,15 @@ the totals afterwards::
     # {"spans": {"engine.pack": [1, 0.012], ...},
     #  "counters": {"engine.calls": 8, ...}}
 
-The counters the engines keep: `engine.calls` and `engine.epoch_calls`
-(FlowEngine.device_calls: every call, and the dense calls that take the
-epoch scatter), `engine.decoded_lanes` (every lane decoded into output
-columns, on the host or on the card) and `engine.device_decoded_lanes`
-(the lanes the decode_wire kernel decoded).
+The counters the engines and kernel wrappers keep: `engine.calls` and
+`engine.epoch_calls` (FlowEngine.device_calls: every call, and the dense
+calls that take the epoch scatter), `engine.decoded_lanes` (every lane
+decoded into output columns, on the host or on the card),
+`engine.device_decoded_lanes` (the lanes the decode_wire kernel decoded)
+and `kernels.local_flow_general_launches` (ops/kernels.local_flow: the
+launches of the general plane-fit kernel, k >= 7). Besides the engines'
+stage spans, ops/kernels.local_flow opens `kernels.local_flow` around its
+card path's host work (checks, allocations, the launch).
 
 The totals are per process: the ranks of a sharded engine each keep
 their own. `reset()` clears them between profiler sessions.
