@@ -7,9 +7,11 @@ environment variables and defaults, and its key names:
   stay there. `device_batches` uploads `n_calls` distinct calls before the
   timer, each a freshly seeded 320 x 320 random stream whose stamps
   continue one timeline (call i's offset by i spans), packed as `bench.py`
-  packs them (`pack(compact=True)`, `pack_wesc`, `pack_r2` under
-  correction); `timed_lane` runs them in order through `scan_chunk` from
-  `init_state`, best of 3, fenced by `torch.cuda.synchronize`.
+  packs them (`pack(compact=True)`, `pack_r2` under correction) but
+  without `bench.py`'s equal-stamp escapes: the port's step finds each
+  phase's written pixels by the epoch scatter, as in process();
+  `timed_lane` runs them in order through `scan_chunk` from `init_state`,
+  best of 3, fenced by `torch.cuda.synchronize`.
 - **fidelity lane** (`fidelity_*`): the `fidelity` preset's device rate,
   and `fidelity_validity_agreement`, measured in the run: the first timed
   chunk's wire rows decoded (`decode_wire_columns`) and held against the
@@ -72,11 +74,8 @@ def device_batches(eng: FlowEngine, cfg: FlowConfig, ev: EventBatch,
     Call 0 is `ev`, call i > 0 a stream seeded i; each call's stamps are
     offset by i * span, so the calls continue one stream. Each is packed
     as process() ships the dense path's calls, with the compact layout in
-    place of the delta-coded words: compact events, the equal-stamp
-    escapes of the derived `written` where they fit, and the rank-2
-    correction lanes when the config asks for them. `pack_wesc` advances
-    the engine's host stamp mirror, so the batches are right only when
-    they run in the order they were packed. Returns (batches on
+    place of the delta-coded words: compact events, and the rank-2
+    correction lanes when the config asks for them. Returns (batches on
     `device`, the host streams)."""
     n = cfg.chunk_size * spc
     batches, evs = [], []
@@ -89,10 +88,7 @@ def device_batches(eng: FlowEngine, cfg: FlowConfig, ev: EventBatch,
                          .astype(np.uint32), evi.pol)
         evs.append(evi)
         packed, _ = eng.pack(evi, steps_per_call=spc, compact=True)
-        wesc, ok = eng.pack_wesc(evi, steps_per_call=spc)
         batch = {"ev": packed[0]}
-        if ok[0]:
-            batch["wesc"] = wesc[0]
         if cfg.center_correction:
             r2f, r2c = eng.pack_r2(evi, steps_per_call=spc)
             batch["r2f"] = r2f[0]

@@ -590,8 +590,7 @@ class HaloFlowEngine(FlowEngine):
     def set_state(self, state: SurfaceState) -> None:
         """Adopt a whole-sensor [W, H] state (a restored checkpoint): each
         surface is padded to the array geometry (pad rows as never
-        written) and this rank keeps its band of rows. The host stamp
-        mirror takes the whole sensor: every rank packs the whole stream."""
+        written) and this rank keeps its band of rows."""
         super().set_state(state)
         self.state = band_of(self.state, self.band, self.cfg)
 

@@ -22,8 +22,8 @@ on its cards.
   of each call's wire lanes); `write_flow_distributed` writes the output
   file with no output all-gather: each rank decodes its own lanes.
 
-The escapes and the correction data of a call travel with that call's
-batch (`FlowEngine.device_calls`); nothing is queued across calls.
+The correction data of a call travel with that call's batch
+(`FlowEngine.device_calls`); nothing is queued across calls.
 """
 from __future__ import annotations
 
@@ -74,8 +74,7 @@ class MultiHostFlowEngine(ShardedFlowEngine):
 
     def set_state(self, state: SurfaceState) -> None:
         """Adopt a whole-sensor [W, H] state: padded, and this rank's band
-        of it where the rows are sharded; the host stamp mirror takes the
-        whole sensor."""
+        of it where the rows are sharded."""
         super().set_state(state)
         if self._banded:
             self.state = band_of(self.state, self.mesh.band, self.cfg)
@@ -94,10 +93,8 @@ class MultiHostFlowEngine(ShardedFlowEngine):
         if self._banded:
             rows = self.cfg.array_width // self.mesh.tx
             i = self.mesh.i_tx
-            # the shard step scatters the write epoch; only this band's
-            # rows of the center surfaces are uploaded
-            kw.update(derived_written=False,
-                      center_rows=slice(i * rows, (i + 1) * rows))
+            # only this band's rows of the center surfaces are uploaded
+            kw.update(center_rows=slice(i * rows, (i + 1) * rows))
         return super().device_calls(ev, steps_per_call, **kw)
 
     def _run_call(self, chunk: dict):

@@ -91,9 +91,7 @@ class SpatialFlowEngine(FlowEngine):
 
     def set_state(self, state: SurfaceState) -> None:
         """Adopt a whole-sensor [W, H] state (a restored checkpoint):
-        padded to the array geometry, and this rank keeps its tile. The
-        host stamp mirror takes the whole sensor: every rank packs the
-        whole stream."""
+        padded to the array geometry, and this rank keeps its tile."""
         super().set_state(state)
         self.state = self._tile(self.state)
 
@@ -124,10 +122,9 @@ class SpatialFlowEngine(FlowEngine):
     # ---- processing --------------------------------------------------------
     def device_calls(self, ev: EventBatch, steps_per_call: int | None = None,
                      **kw):
-        # the tile step scatters the write epoch; only this tile's cells
-        # of the center surfaces are uploaded
+        # only this tile's cells of the center surfaces are uploaded
         rows, cols = tile_slices(self.cfg, self.mesh)
-        kw.update(derived_written=False, center_rows=rows, center_cols=cols)
+        kw.update(center_rows=rows, center_cols=cols)
         return super().device_calls(ev, steps_per_call, **kw)
 
     def _run_call(self, chunk: dict):

@@ -43,12 +43,6 @@ from farms_tpu_torch.utils import nativeio, tracing
 # word's field ride as exact (lane, delta) pairs
 _C2_ESCAPES = 16
 
-# equal-stamp write escapes per (step, phase): the derived `written`
-# (t_surf != t_pre) misses a phase-final write whose stamp equals the
-# pixel's pre-phase value; the host ships those lanes. A call with a phase
-# over budget takes the epoch-scatter path instead.
-_W_ESCAPES = 32
-
 # events a host->device call holds where the caller does not size calls
 # (farms_tpu/pipeline/engine.py:1148): a chunk this large runs one
 # micro-step a call, so a stream's last call pads at most one step
@@ -283,10 +277,8 @@ def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig,
     """Process one micro-batch of events against the carried surfaces.
 
     `batch` is the dict of one packed micro-step (see _decode_batch), with
-    an optional "wesc" int32 [P, E] of phase-local equal-stamp escape lanes
-    that enables the derived `written` (no epoch scatter), and with the
-    correction pass's "r2f" uint8 [m] corrected-lane flags and "r2c" int32
-    [W, H] stamp1 center surface (FlowEngine.pack_r2). Returns the new
+    the correction pass's "r2f" uint8 [m] corrected-lane flags and "r2c"
+    int32 [W, H] stamp1 center surface (FlowEngine.pack_r2). Returns the new
     state and the wire pair (int32 [C, k], uint8 [k]); the state passed in
     is not modified. Every lane scatters; `lanes` = (lo, hi) is the window
     of lanes whose outputs are gathered, k = hi - lo (all m by default):
@@ -320,7 +312,6 @@ def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig,
     the flow surfaces. It has none of the features above but the phases.
     """
     x, y, t, is_winner = _decode_batch(batch, cfg)
-    wesc = batch.get("wesc")
     r2f, r2c = batch.get("r2f"), batch.get("r2c")
     W, H = cfg.array_width, cfg.array_height
     WH = W * H
@@ -363,16 +354,19 @@ def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig,
         # keeping each boundary surface for the causal fold ----
         t_pre = t_surf
         snaps = []
-        ep_val = state.step * P + p            # unique, monotone epoch
         for si in range(S):
             ssl = slice(p * mp + si * ms, p * mp + (si + 1) * ms)
             t_surf = _scatter(t_surf, wpix[ssl], t1[ssl])
-            if wesc is None:
-                epoch = _scatter(epoch, wpix[ssl], ep_val)
             if si < S - 1:
                 snaps.append(t_surf)
             if corr and si in links:
                 chunk_chain.append(t_surf)
+        # ---- the phase's write epoch, one scatter for all S sub-groups:
+        # every write of the phase carries the same value, so `written`
+        # holds each pixel a winner wrote, equal-stamp rewrites included
+        # (t_surf != t_pre misses those) ----
+        ep_val = state.step * P + p            # unique, monotone epoch
+        epoch = _scatter(epoch, wpix[sl], ep_val)
         osl = lane_range(sl, lanes)       # this phase's gathered lanes
         if not cfg.use_dense:
             plane, flow_len, flow_vx, flow_vy = _perevent_phase(
@@ -382,18 +376,7 @@ def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig,
                 lanes_out.append(plane[:, osl.start - sl.start:
                                        osl.stop - sl.start])
             continue
-        if wesc is not None:
-            # derived written: pixels whose stamp changed, plus the
-            # host-found equal-stamp rewrites (sentinel slots = mp)
-            el = wesc[p].to(torch.int64)
-            ep = torch.where(el < mp, pix[sl][el.clamp(0, mp - 1)], WH)
-            wflat = torch.cat([(t_surf != t_pre).reshape(-1),
-                               torch.zeros(1, dtype=torch.bool,
-                                           device=x.device)])
-            wflat[ep] = True
-            written = wflat[:WH].view(W, H)
-        else:
-            written = epoch == ep_val
+        written = epoch == ep_val
 
         # ---- local plane fit (kernel 1 or 2) and its trig tail ----
         chain = torch.stack([t_pre, *snaps]) if snaps else t_pre[None]
@@ -605,18 +588,11 @@ class FlowEngine:
     def reset(self):
         self.state = init_state(self.cfg, self.device)
         self._t0 = None
-        # host mirror of t_surf (stamp1) for pack_wesc, at the semantic
-        # geometry of the packed flat indices
-        self._last_stamp = np.zeros(self.cfg.width * self.cfg.height,
-                                    np.int32)
 
     def set_state(self, state: SurfaceState) -> None:
         """Adopt a whole-sensor [W, H] state (e.g. a restored checkpoint),
-        padded to the array geometry, and re-seed the host stamp mirror
-        that pack_wesc's equal-stamp detection tracks."""
+        padded to the array geometry."""
         self.state = pad_state(state, self.cfg)
-        self._last_stamp = (state.t_surf.cpu().numpy().reshape(-1)
-                            .astype(np.int32).copy())
 
     def whole_state(self) -> SurfaceState | None:
         """The state at the semantic [W, H] geometry, as a checkpoint
@@ -706,60 +682,6 @@ class FlowEngine:
                                    winner)):
             packed[:, :, row, :] = arr.reshape(n_calls, spc, m)
         return packed, n
-
-    def pack_wesc(self, ev: EventBatch, steps_per_call: int | None = None):
-        """Equal-stamp write escapes for the derived-written device path.
-
-        Returns (wesc int32 [n_calls, spc, P, E] phase-local lane indices
-        with sentinel mp for unused slots, ok bool [n_calls]). A call whose
-        escapes fit ships `wesc` and skips the epoch scatter; ok=False
-        calls (a phase overflowed E) use the epoch-scatter path. Advances
-        the host stamp mirror, so call it exactly once per packed stream,
-        in stream order.
-        """
-        cfg = self.cfg
-        m = cfg.chunk_size
-        P = cfg.sub_phases
-        mp = m // P
-        E = _W_ESCAPES
-        W, H = cfg.width, cfg.height
-        WH = W * H
-        n = len(ev)
-        if self._t0 is None and n:
-            self._t0 = np.uint32(ev.t[0])
-        spc = call_steps(cfg, steps_per_call)
-        per_call = m * spc
-        n_calls = max(1, -(-n // per_call))
-        last = self._last_stamp
-        x = np.clip(ev.x.astype(np.int64), 0, W - 1)
-        y = np.clip(ev.y.astype(np.int64), 0, H - 1)
-        flat = np.full(n_calls * per_call, WH, dtype=np.int64)
-        flat[:n] = x * H + y
-        t1 = np.zeros(n_calls * per_call, dtype=np.int32)
-        t1[:n] = ((ev.t.astype(np.uint32) - self._t0 + np.uint32(1))
-                  ).view(np.int32)
-        flat = flat.reshape(n_calls, spc, P, mp)
-        t1 = t1.reshape(n_calls, spc, P, mp)
-        wesc = np.full((n_calls, spc, P, E), mp, dtype=np.int32)
-        ok = np.ones(n_calls, dtype=bool)
-        lanes = np.arange(mp, dtype=np.int64)
-        seen = np.empty(WH + 1, dtype=np.int64)
-        for c in range(n_calls):
-            for s in range(spc):
-                for p in range(P):
-                    f = flat[c, s, p]
-                    tp = t1[c, s, p]
-                    seen[f] = lanes
-                    final = (seen[f] == lanes) & (f < WH)
-                    ff = f[final]
-                    eq = tp[final] == last[ff]    # vs PRE-phase value
-                    last[ff] = tp[final]
-                    el = lanes[final][eq]
-                    if el.size > E:
-                        ok[c] = False             # keep `last` advancing
-                    else:
-                        wesc[c, s, p, :el.size] = el
-        return wesc, ok
 
     def pack_r2(self, ev: EventBatch, steps_per_call: int | None = None):
         """Rank-2 lane data of the center-correction pass, built on the host.
@@ -950,21 +872,19 @@ class FlowEngine:
 
     # ---- processing --------------------------------------------------------
     def device_calls(self, ev: EventBatch, steps_per_call: int | None = None,
-                     derived_written: bool = True, center_rows=slice(None),
-                     rows5: bool = False, center_cols=slice(None)):
+                     center_rows=slice(None), rows5: bool = False,
+                     center_cols=slice(None)):
         """Pack a stream (len(ev) > 0) and yield each call's micro_step
-        batch dict on the device, in order; each call's escapes and
-        center surfaces travel with its own batch. `derived_written`
-        False skips pack_wesc (a step that always scatters the epoch);
-        `center_rows` and `center_cols` are the cells of the center
-        surfaces a rank uploads; `rows5` packs the explicit 5-row layout
-        instead of the delta-coded words (pack2).
+        batch dict on the device, in order; each call's center surfaces
+        travel with its own batch. `center_rows` and `center_cols` are the
+        cells of the center surfaces a rank uploads; `rows5` packs the
+        explicit 5-row layout instead of the delta-coded words (pack2).
 
         While a profiler records (utils/tracing.py), each packer is a span
-        (`engine.pack`, `engine.pack_wesc`, `engine.pack_r2`), each call's
-        copies to the device one `engine.upload`, and the counters
-        `engine.calls` and `engine.epoch_calls` (dense calls without
-        escapes, which take the epoch scatter) count the calls."""
+        (`engine.pack`, `engine.pack_r2`), each call's copies to the
+        device one `engine.upload`, and the counters `engine.calls` and
+        `engine.epoch_calls` (dense calls, whose step finds each phase's
+        written pixels by the epoch scatter) count the calls."""
         with tracing.span("engine.pack"):
             if rows5:
                 packed, _ = self.pack(ev, steps_per_call=steps_per_call)
@@ -972,11 +892,6 @@ class FlowEngine:
             else:
                 packed, aux2, _ = self.pack2(ev,
                                              steps_per_call=steps_per_call)
-        # the escapes of the derived `written` exist on the dense path only
-        wesc, w_ok = None, None
-        if self.cfg.use_dense and derived_written:
-            with tracing.span("engine.pack_wesc"):
-                wesc, w_ok = self.pack_wesc(ev, steps_per_call=steps_per_call)
         r2 = None
         if self.cfg.center_correction:
             with tracing.span("engine.pack_r2"):
@@ -988,15 +903,13 @@ class FlowEngine:
                 if aux2 is not None:
                     chunk["base"] = torch.from_numpy(aux2[0][c]).to(dev)
                     chunk["esc"] = torch.from_numpy(aux2[1][c]).to(dev)
-                if wesc is not None and w_ok[c]:
-                    chunk["wesc"] = torch.from_numpy(wesc[c]).to(dev)
                 if r2 is not None:
                     chunk["r2f"] = torch.from_numpy(r2[0][c]).to(dev)
                     chunk["r2c"] = torch.from_numpy(np.ascontiguousarray(
                         self.array_centers(r2[1][c])[:, center_rows,
                                                      center_cols])).to(dev)
             tracing.count("engine.calls")
-            if self.cfg.use_dense and "wesc" not in chunk:
+            if self.cfg.use_dense:
                 tracing.count("engine.epoch_calls")
             yield chunk
 
@@ -1054,10 +967,10 @@ class FlowEngine:
         Returns (fn, n): fn() runs every micro-step of the stream from the
         engine's current state, leaves the new state in the engine and
         returns the call's wire blocks on the device; n is the event
-        count. The call carries its escapes (dense path) and correction
-        data as process() does. Replaying fn() from the state before its
-        first call (`engine.state`, which no step modifies in place)
-        reproduces the same outputs; the benchmark harness times it so.
+        count. The call carries its correction data as process() does.
+        Replaying fn() from the state before its first call
+        (`engine.state`, which no step modifies in place) reproduces the
+        same outputs; the benchmark harness times it so.
         """
         spc = max(1, -(-len(ev) // self.cfg.chunk_size))
         chunk = next(self.device_calls(ev, spc, rows5=True))

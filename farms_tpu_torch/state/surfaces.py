@@ -21,7 +21,8 @@ read past the sensor edge. Checkpoints keep the semantic [W, H]
   exactly 2^32 - 1 encodes to 0 and reads back as "never written" until
   that pixel's next write.
 - `epoch` records the write epoch (step * sub_phases + phase) of each
-  pixel's last write on the epoch path; -1 = never.
+  pixel's last write; a phase's written pixels are those holding its
+  epoch (micro_step); -1 = never.
 - `flow_len/vx/vy` replace the reference's On/Off flow surfaces, which
   always receive identical writes (vFlow.cpp:349-356).
 - `step` is the micro-step counter, a host integer.

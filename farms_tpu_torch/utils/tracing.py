@@ -22,7 +22,8 @@ the totals afterwards::
 
 The counters the engines and kernel wrappers keep: `engine.calls` and
 `engine.epoch_calls` (FlowEngine.device_calls: every call, and the dense
-calls that take the epoch scatter), `engine.decoded_lanes` (every lane
+calls, whose step finds each phase's written pixels by the epoch
+scatter), `engine.decoded_lanes` (every lane
 decoded into output columns, on the host or on the card),
 `engine.device_decoded_lanes` (the lanes the decode_wire kernel decoded)
 and `kernels.local_flow_general_launches` (ops/kernels.local_flow: the

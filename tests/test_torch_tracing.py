@@ -5,8 +5,9 @@ the benchmark's readers of them.
   span of FlowEngine.process is a profiler range and a total with the
   expected count, at both presets' shapes, and the outputs are bitwise
   those of an untraced run.
-- A call whose equal-stamp write escapes overflow counts as an epoch
-  call.
+- Every dense call counts as an epoch call (its step finds each phase's
+  written pixels by the epoch scatter), also on a stream of equal-stamp
+  rewrites.
 - flowbench/metrics/_spans.py and its readers turn totals into readings,
   and give None where the program kept none.
 - The halo engine's spans on 2 gloo ranks.
@@ -23,7 +24,7 @@ from torch.profiler import ProfilerActivity
 from farms_tpu_torch.config import FlowConfig
 from farms_tpu_torch.events.io import EventBatch, synthetic_rotating_shapes
 from farms_tpu_torch.parallel import mesh
-from farms_tpu_torch.pipeline.engine import _W_ESCAPES, FlowEngine
+from farms_tpu_torch.pipeline.engine import FlowEngine
 from farms_tpu_torch.utils import tracing
 from flowbench import harness
 
@@ -97,7 +98,7 @@ def test_traced_process_opens_every_stage_span(stream, preset):
         lambda: FlowEngine(cfg, device="cpu").process(stream, _SPC))
     assert len(out) == len(stream)
     calls = -(-len(stream) // _CALL)
-    want = {"engine.pack": 1, "engine.pack_wesc": 1, "engine.upload": calls,
+    want = {"engine.pack": 1, "engine.upload": calls,
             "engine.launch": calls, "engine.fetch": calls,
             "engine.decode": 1}
     if cfg.center_correction:
@@ -105,8 +106,10 @@ def test_traced_process_opens_every_stage_span(stream, preset):
     t = tracing.totals()
     assert {k: v[0] for k, v in t["spans"].items()} == want
     assert all(v[1] > 0 for v in t["spans"].values())
-    # a CPU engine decodes every lane on the host
+    # every call is dense, so an epoch call; a CPU engine decodes every
+    # lane on the host
     assert t["counters"] == {"engine.calls": calls,
+                             "engine.epoch_calls": calls,
                              "engine.decoded_lanes": len(stream)}
     assert sorted(names) == sorted(
         tracing.PREFIX + k for k, v in want.items() for _ in range(v))
@@ -122,12 +125,13 @@ def test_traced_process_outputs_are_bitwise_untraced(stream, preset):
 
 
 def test_overflowing_escapes_count_one_epoch_call():
-    """Call 1 rewrites every pixel of its first phase at the same stamp
-    in its second phase: more equal-stamp escapes than _W_ESCAPES, so
-    the call takes the epoch scatter. Call 2 has distinct stamps."""
+    """Every dense call is an epoch call. Call 1 rewrites every pixel of
+    its first phase at the same stamp in its second phase (more
+    equal-stamp rewrites than the JAX engine's 32 escape slots); call 2
+    has distinct stamps: both count."""
     cfg = FlowConfig(**_BENCH)
     mp = cfg.chunk_size // cfg.sub_phases
-    assert mp > _W_ESCAPES
+    assert mp > 32
     pix = np.arange(mp, dtype=np.int32)
     x = np.concatenate([pix, pix, 8 + pix % 32, 8 + pix % 32]) % 64
     y = np.concatenate([pix // 64, pix // 64, pix // 32 + 20,
@@ -137,13 +141,10 @@ def test_overflowing_escapes_count_one_epoch_call():
     ev = EventBatch(x.astype(np.int32), y.astype(np.int32), t,
                     np.ones(4 * mp, np.int32))
     eng = FlowEngine(cfg, device="cpu")
-    wesc, ok = eng.pack_wesc(ev, steps_per_call=1)
-    assert ok.tolist() == [False, True]
-    eng = FlowEngine(cfg, device="cpu")
     out, _ = _traced(lambda: eng.process(ev, steps_per_call=1))
     assert len(out) == len(ev)
     assert tracing.totals()["counters"] == {"engine.calls": 2,
-                                            "engine.epoch_calls": 1,
+                                            "engine.epoch_calls": 2,
                                             "engine.decoded_lanes": len(ev)}
 
 
