@@ -21,10 +21,11 @@ same order; rank 0 returns the FlowOutput. A run of one rank has no
 process group: exchanges zero-pad and the band integral is built locally,
 so every halo mode of every kernel runs on one card.
 
-The shard step `_step` runs on a band group (`mesh.Axis`: the ranks that
-split the rows), which is the whole world here and one line of the (tx,
-ev) grid in parallel/multihost.py, and gathers the outputs of a window of
-lanes: all of them here, an event shard's there.
+Every engine runs the one micro-step of pipeline/engine.py over its shard.
+`Band` is a row band on a band group (`mesh.Axis`: the ranks that split
+the rows), which is the whole world here and one line of the (tx, ev)
+grid in parallel/multihost.py, where the step gathers an event shard's
+window of lanes; `Tile` is a tile of parallel/tiling.py's grid.
 """
 from __future__ import annotations
 
@@ -36,17 +37,12 @@ import torch.nn.functional as F
 from farms_tpu_torch.config import FlowConfig
 from farms_tpu_torch.events.io import EventBatch, FlowOutput
 from farms_tpu_torch.ops import kernels
-from farms_tpu_torch.ops.dense_flow import (aperture_y_clip, onehot_gather,
-                                            tile_band, trig_tail)
+from farms_tpu_torch.ops.dense_flow import aperture_y_clip, tile_band
 from farms_tpu_torch.parallel import mesh
-from farms_tpu_torch.pipeline.engine import (FlowEngine, _coarse,
-                                             _empty_output, _lane_table,
-                                             _merge_lanes, _phasing,
-                                             _scatter, _take, lane_range,
-                                             refuse_sparse, wire_maps,
-                                             wire_n_main_rows, wire_pack)
-from farms_tpu_torch.state.surfaces import (SurfaceState, kill_stale_flow,
-                                            kill_stale_flow_in_phase)
+from farms_tpu_torch.pipeline.engine import (FlowEngine, Sensor,
+                                             _empty_output, refuse_sparse,
+                                             scan_chunk, wire_n_main_rows)
+from farms_tpu_torch.state.surfaces import SurfaceState
 from farms_tpu_torch.utils import tracing
 
 
@@ -238,251 +234,106 @@ def _own(lanes: torch.Tensor, in_core: torch.Tensor) -> torch.Tensor:
     return torch.where(in_core, lanes, -0.0)
 
 
-def _local_fit(chain, center, cfg, row0, fold_center=True, col0=None):
-    """The plane fit of one shard's band (kernel 1 or 2 in halo mode, or
-    with a tile's first column `col0` in tile mode) and its trig tail:
-    (vx, vy, gate, length) maps of the core cells."""
-    R = cfg.support_radius
-    acc, a, b, dtdp, _ = kernels.local_flow(
-        chain, center, cfg, fold_center=fold_center, halo=R,
-        row_offset=row0, col_halo=0 if col0 is None else R,
-        col_offset=col0 or 0)
-    vx, vy, gate, length, _ = trig_tail(acc, a, b, dtdp)
-    return vx, vy, gate, length
-
-
-def _corr_assemble(cfg: FlowConfig, chain_ext, t_c2, loc_maps, ap_tables,
-                   rows, row0, lx, ys, in_core, cflag, grp, lane, head,
-                   col0=None):
-    """Sharded rank-2 correction pass + merged-table lane assembly.
-
-    The shard-local form of micro_step's correction (JAX:
-    farms_tpu/parallel/halo.py:146): the extra plane fit runs in halo and
-    correction mode on the chunk's exchanged chain (pass 1's bands, no new
-    collective) against this shard's rows of the host-built center
-    surface, and every lane reads its plane-fit rows from its phase's
-    table (`grp`), or the correction table where flagged, and its
-    true-flow rows from its aperture pass's table (`lane`, the lanes'
-    indices among the step's `head`). Off-shard lanes read a clamped row
-    and are zeroed. In tile mode (`col0`: the tile's first column) the
-    center surface is the tile's cells and `ys` its local columns,
-    clamped. Returns the [5, k] f32 lane stack of the k lanes.
-    """
-    R = cfg.support_radius
-    cols = t_c2.shape[1]
-    # the center is read at the core cells only (correction mode does not
-    # fold it): its halos are zeros
-    ch = 0 if col0 is None else R
-    vx2, vy2, gate2, _ = _local_fit(torch.stack(chain_ext),
-                                    F.pad(t_c2, (ch, ch, R, R)), cfg, row0,
-                                    fold_center=False, col0=col0)
-    loc_all = loc_maps + [_lane_table(vx2, vy2, gate2, cfg, packed=False)]
-    RH = rows * cols
-    pix = (lx.clamp(0, rows - 1).to(torch.int64) * cols
-           + ys.clamp(0, cols - 1).to(torch.int64))
-    table = torch.where(cflag, len(loc_all) - 1, grp)
-    loc = _own(_take(loc_all, table * RH + pix), in_core)
-    tf = _own(_take(ap_tables, lane // (head // len(ap_tables)) * RH + pix),
-              in_core)
-    return _merge_lanes(loc, tf, cfg, packed=False)
-
-
-def _step(state: SurfaceState, x, y, t, is_winner, cfg: FlowConfig,
-          band: mesh.Axis, cflag=None, t_c2=None, bs: int = 0,
-          lanes: tuple[int, int] | None = None,
-          tile: mesh.TileMesh | None = None):
-    """One micro-step of one shard on its band group (JAX:
+class Band(Sensor):
+    """A row band of the sensor as a micro-step's shard (JAX:
     halo_micro_step :374 with bs = 0, halo_micro_step_sharded :201 with
-    bs > 0), or with `tile` of one tile of a (tx, ty) grid (band: the
-    tile's x line; parallel/tiling.py, JAX's spatial engine): every halo
-    in both axes, each kernel in tile mode, bs = 0, and the lanes summed
-    over the whole grid.
+    bs > 0): this rank's rows of a band group (`band`: the ranks that
+    split the rows), the time surfaces' R-deep halo from the ring
+    (`exchange_halo`), each kernel in halo mode and the aperture pass on
+    the band integral (`assemble_integral_band`).
 
-    x, y, t, is_winner are the step's lanes (int32, bool), cflag the
-    corrected-lane flags (bool) when `t_c2` (this shard's rows of the
-    rank-2 center surface) is given:
     - bs = 0, replicated: every rank gets all m lanes and gathers those
-      of the window `lanes` = (lo, hi) (all by default); the outputs are
-      summed over the band (each lane has one non-zero contribution, its
-      owner's);
-    - bs > 0, owner-sharded: this rank's own P*S sub-group segments of bs
-      lanes plus a P-lane tail whose stamp row holds the global phase start
-      stamps for the staleness kill; no sum, the lanes stay on their rank.
-    Returns the new state and the wire pair (int32 [C, k], uint8 [k]).
+      of the step's window; a lane's outputs are its owner's, -0.0
+      elsewhere (`_own`), summed over the band;
+    - bs > 0, owner-sharded (HaloFlowEngine.pack_halo): this rank's own
+      P*S sub-group segments of bs lanes plus a P-lane tail whose stamp
+      row holds the global phase start stamps for the staleness kill; no
+      sum, the lanes stay on their rank.
     """
-    rows = cfg.array_width // band.size
-    row0 = band.index * rows
-    R = cfg.support_radius
-    A = cfg.max_window + 1
-    if tile is None:
-        cols, col0, summed = cfg.array_height, None, band
-    else:
-        cols = cfg.array_height // tile.ty
-        col0, summed = tile.y.index * cols, tile.grid
-    corr = t_c2 is not None
-    if bs:
-        P, S = cfg.sub_phases, cfg.causal_snapshots
-        links = (S - 1,) if cfg.correction_coarse_chain else tuple(range(S))
-        mp = ms = None
-        head = P * S * bs
-        t0s = t[head:]
-    else:
-        head = x.shape[0]
-        P, S, links = _phasing(head, cfg)
-        mp = head // P
-        ms = mp // S
-        t0s = t[::mp][:P]
-    lo, hi = lanes or (0, head)
-    coarse = _coarse(cfg, P)
-    seg = S * bs if bs else mp          # lanes of one phase
-    sub = bs if bs else ms              # lanes of one scatter sub-group
-    # fine aperture groups per phase (micro_step's rule; replicated layout)
-    kf = max(1, cfg.aperture_sub_phases // P) if cfg.aperture_sub_phases else 1
-    if bs or seg % kf or corr:
-        kf = 1
-    mg = seg // kf
 
-    t_surf, epoch = state.t_surf, state.epoch
-    flow_len, flow_vx, flow_vy = state.flow_len, state.flow_vx, state.flow_vy
-    lx = x - row0
-    ly = y if col0 is None else y - col0
-    in_core = (lx >= 0) & (lx < rows) & (ly >= 0) & (ly < cols)
-    # local flat pixel per lane; non-winners and lanes of other shards go
-    # to the spare cell rows*cols of the scatter buffers
-    pix = lx.to(torch.int64) * cols + ly.to(torch.int64)
-    wpix = torch.where(is_winner & in_core, pix, rows * cols)
-    t1 = t + 1
-    safe_lx = lx.clamp(0, rows - 1)
-    safe_ly = ly.clamp(0, cols - 1)
+    def __init__(self, cfg: FlowConfig, band: mesh.Axis, bs: int = 0):
+        super().__init__(cfg)
+        self.band, self.bs = band, bs
+        self.rows = cfg.array_width // band.size
+        self.row0 = band.index * self.rows
+        self.R, self.A = cfg.support_radius, cfg.max_window + 1
+        self.ch = self.col0 = 0     # a tile's column halo and first column
+        self.summed = band if not bs and band.size > 1 else None
 
-    def ext(surf):
-        """A surface with its R-deep halo: rows, then (tiles) columns."""
-        surf = exchange_halo(surf, R, band)
-        return surf if tile is None else exchange_halo(surf, R, tile.y,
-                                                       dim=-1)
+    def lanes(self, x, y, is_winner):
+        lx, ly = x - self.row0, y - self.col0
+        in_core = (lx >= 0) & (lx < self.rows) & (ly >= 0) & (ly < self.cols)
+        # a lane of another shard gathers from a clamped cell; it
+        # scatters, as a non-winner does, to the spare cell
+        gx, gy = lx.clamp(0, self.rows - 1), ly.clamp(0, self.cols - 1)
+        pix = gx.to(torch.int64) * self.cols + gy.to(torch.int64)
+        return gx, gy, pix, torch.where(is_winner & in_core, pix,
+                                        self.rows * self.cols), in_core
 
-    def core(surf_ext):
-        return surf_ext[R:R + rows, R:R + cols] if tile else (
-            surf_ext[R:R + rows])
+    def ext(self, surf):
+        return exchange_halo(surf, self.R, self.band)
 
-    # ---- pass 1: scatters and every time-surface band exchange, before
-    # any stencil compute (the JAX package's order, which lets XLA overlap
-    # phase p+1's exchange with phase p's compute). A phase's pre-scatter
-    # band is the previous phase's post band: one exchange per sub-group.
-    phases = []
-    pre_ext = ext(t_surf)
-    chain_ext = [pre_ext] if corr else None
-    for p in range(P):
-        ep_val = state.step * P + p
-        mids = []
-        for si in range(S):
-            ssl = slice(p * seg + si * sub, p * seg + (si + 1) * sub)
-            t_surf = _scatter(t_surf, wpix[ssl], t1[ssl])
-            epoch = _scatter(epoch, wpix[ssl], ep_val)
-            if si < S - 1:
-                mids.append(ext(t_surf))
-                if corr and si in links:
-                    chain_ext.append(mids[-1])
-        post_ext = ext(t_surf)
-        if corr:                        # the last sub-group always links
-            chain_ext.append(post_ext)
-        phases.append((epoch == ep_val, pre_ext, mids, post_ext))
-        pre_ext = post_ext
+    def core(self, surf_ext):
+        return surf_ext[self.R:self.R + self.rows,
+                        self.ch:self.ch + self.cols]
 
-    # ---- pass 2: stencil compute per phase ----
-    loc_maps, ap_tables, pending, lanes_out = [], [], [], []
-    for p, (written, pre_ext, mids, post_ext) in enumerate(phases):
-        # the phase's gathered lanes
-        lsl = lane_range(slice(p * seg, (p + 1) * seg), (lo, hi))
-        # staleness kill at aperture-group cadence, against the phase's
-        # pre-scatter surface: the core rows of its pre band
-        if not coarse or p % (P // coarse) == 0:
-            flow_len = kill_stale_flow(flow_len, core(pre_ext), t0s[p], cfg)
-        vx_map, vy_map, gate_map, len_map = _local_fit(
-            torch.stack([pre_ext, *mids]), post_ext, cfg, row0, col0=col0)
-        flow_len = torch.where(
-            written, torch.where(gate_map, len_map, 0.0), flow_len)
-        flow_vx = torch.where(
-            written, torch.where(gate_map, vx_map, 0.0), flow_vx)
-        flow_vy = torch.where(
-            written, torch.where(gate_map, vy_map, 0.0), flow_vy)
-        loc = _lane_table(vx_map, vy_map, gate_map, cfg, packed=False)
-        if corr:
-            # every lane is assembled after the correction pass
-            loc_maps.append(loc)
-        elif coarse and lsl:
-            # this group's plane-fit lanes wait for their pooling pass
-            pending.append((lsl, _own(onehot_gather(
-                loc, safe_lx[lsl], safe_ly[lsl], rows, cols), in_core[lsl])))
-        if coarse and (p + 1) % (P // coarse):
-            continue
-        for g in range(kf):
-            if g:
-                # fine phasing: the in-phase kill against the phase's
-                # post-scatter surface, the core rows of its post band
-                flow_len = kill_stale_flow_in_phase(
-                    flow_len, core(post_ext), t[p * seg + g * mg], cfg)
-            if tile is None:
-                integ = assemble_integral_band(flow_len, flow_vx, flow_vy,
-                                               band, A)
-            else:
-                integ = assemble_integral_tile(flow_len, flow_vx, flow_vy,
-                                               tile, A, aperture_y_clip(cfg))
-            tvx_map, tvy_map, scale_map = kernels.aperture(
-                flow_len, flow_vx, flow_vy, cfg, halo=A, integ=integ,
-                col_halo=0 if tile is None else A)
-            if corr:
-                ap_tables.append(_lane_table(tvx_map, tvy_map, scale_map,
-                                             cfg, packed=False))
-                continue
-            if coarse:
-                amaps = _lane_table(tvx_map, tvy_map, scale_map, cfg,
-                                    packed=False)
-                for gsl, gloc in pending:
-                    tf = _own(onehot_gather(amaps, safe_lx[gsl],
-                                            safe_ly[gsl], rows, cols),
-                              in_core[gsl])
-                    lanes_out.append(_merge_lanes(gloc, tf, cfg,
-                                                  packed=False))
-                pending = []
-                continue
-            gsl = lane_range(slice(p * seg + g * mg, p * seg + (g + 1) * mg),
-                             (lo, hi))
-            if gsl:
-                # packed=False: these lanes are summed across ranks below,
-                # and f32 arithmetic on packed f16-pair words is not
-                # bit-preserving
-                maps = wire_maps(gate_map, vx_map, vy_map, tvx_map, tvy_map,
-                                 scale_map, cfg, packed=False)
-                lanes_out.append(_own(onehot_gather(
-                    maps, safe_lx[gsl], safe_ly[gsl], rows, cols),
-                    in_core[gsl]))
+    def fit(self, chain, center, fold_center=True):
+        if not fold_center:
+            # correction mode reads the center at the core cells only:
+            # its halos are zeros
+            center = F.pad(center, (self.ch, self.ch, self.R, self.R))
+        return kernels.local_flow(chain, center, self.cfg, fold_center,
+                                  halo=self.R, row_offset=self.row0,
+                                  col_halo=self.ch, col_offset=self.col0)
 
-    if corr:
-        lane = torch.arange(lo, hi, device=x.device)
-        out_lanes = _corr_assemble(cfg, chain_ext, t_c2, loc_maps, ap_tables,
-                                   rows, row0, lx[lo:hi], ly[lo:hi],
-                                   in_core[lo:hi], cflag[lo:hi],
-                                   lane // seg, lane, head, col0)
-    else:
-        out_lanes = torch.cat(lanes_out, 1)
-    k = hi - lo
-    n = summed.size
-    if not bs and n > 1:
-        # one non-zero (NaN-scrubbed) contribution per lane: the sum is
-        # exact. A reduce-scatter leaves each rank its 1/n of the lanes;
-        # where n does not divide them every rank sums them all.
-        if k % n == 0:
-            part = out_lanes.new_empty((k // n, 5))
-            dist.reduce_scatter_tensor(part, out_lanes.t().contiguous(),
-                                       group=summed.group)
-            out_lanes = part.t()
-        else:
-            dist.all_reduce(out_lanes, group=summed.group)
-    out = wire_pack(out_lanes[0], out_lanes[1], out_lanes[2], out_lanes[3],
-                    out_lanes[4], cfg)
-    return SurfaceState(t_surf, epoch, flow_len, flow_vx, flow_vy,
-                        state.step + 1), out
+    def pool(self, flow_len, flow_vx, flow_vy):
+        integ = assemble_integral_band(flow_len, flow_vx, flow_vy, self.band,
+                                       self.A)
+        return kernels.aperture(flow_len, flow_vx, flow_vy, self.cfg,
+                                halo=self.A, integ=integ)
+
+    def own(self, rows, in_core, sl):
+        return rows if self.summed is None else _own(rows, in_core[sl])
+
+    def sum(self, rows):
+        """One non-zero (NaN-scrubbed) contribution per lane: the sum is
+        exact. A reduce-scatter leaves each rank its 1/n of the lanes;
+        where n does not divide them every rank sums them all."""
+        if self.summed is None:
+            return rows
+        n, group = self.summed.size, self.summed.group
+        if rows.shape[1] % n:
+            dist.all_reduce(rows, group=group)
+            return rows
+        part = rows.new_empty((rows.shape[1] // n, rows.shape[0]))
+        dist.reduce_scatter_tensor(part, rows.t().contiguous(), group=group)
+        return part.t()
+
+
+class Tile(Band):
+    """One tile of a (tx, ty) grid as a micro-step's shard
+    (parallel/tiling.py, JAX's spatial engine): every halo in both axes
+    (rows from the tile's x line, then columns of the row-extended array
+    from its y line, which carries the corners), each kernel in tile
+    mode, the aperture pass on the tile integral
+    (`assemble_integral_tile`), and the lanes summed over the whole
+    grid."""
+
+    def __init__(self, cfg: FlowConfig, grid: mesh.TileMesh):
+        super().__init__(cfg, grid.x)
+        self.grid = grid
+        self.cols = cfg.array_height // grid.ty
+        self.ch, self.col0 = self.R, grid.y.index * self.cols
+        self.summed = grid.grid if grid.grid.size > 1 else None
+
+    def ext(self, surf):
+        return exchange_halo(super().ext(surf), self.R, self.grid.y, dim=-1)
+
+    def pool(self, flow_len, flow_vx, flow_vy):
+        integ = assemble_integral_tile(flow_len, flow_vx, flow_vy, self.grid,
+                                       self.A, aperture_y_clip(self.cfg))
+        return kernels.aperture(flow_len, flow_vx, flow_vy, self.cfg,
+                                halo=self.A, integ=integ, col_halo=self.A)
 
 
 def gather_lanes(main: torch.Tensor, aux: torch.Tensor, axis: mesh.Axis,
@@ -510,9 +361,9 @@ def gather_lanes(main: torch.Tensor, aux: torch.Tensor, axis: mesh.Axis,
 
 def gather_summed(main: torch.Tensor, aux: torch.Tensor, axis: mesh.Axis,
                   m: int):
-    """One call's whole wire block of `_step`'s replicated lanes (bs = 0,
-    m a step, summed over `axis`) on the axis's first rank (on the
-    device), None elsewhere: the ranks' reduce-scatter slices end to end
+    """One call's whole wire block of a step's replicated lanes (m a
+    step, summed over `axis`: a `Band` with bs = 0, a `Tile`) on the
+    axis's first rank (on the device), None elsewhere: the ranks' reduce-scatter slices end to end
     in rank order, or the first rank's own lanes where the all-reduce left
     every rank all of them (the axis does not divide m)."""
     if m % axis.size:
@@ -698,8 +549,9 @@ class HaloFlowEngine(FlowEngine):
 
     def _halo_calls(self, ev: EventBatch, steps_per_call: int | None):
         """(n, perm, calls): pack_halo's stream, and a generator of each
-        call's (this rank's batch int32 [spc, rows, lanes], its rows of
-        the center surfaces or None) on the device.
+        call's scan_chunk batch on the device: this rank's 5-row lanes
+        "ev" int32 [spc, 5, lanes] and, under correction, the flag row
+        "r2f" [spc, lanes] and its rows of the center surfaces "r2c".
 
         While a profiler records (utils/tracing.py), the pack is the span
         `halo.pack`, the layout vote `halo.vote` (on the host, the wait
@@ -728,30 +580,26 @@ class HaloFlowEngine(FlowEngine):
                 chunk = packed[c][:, rank] if sharded else packed[c]
                 # each call's center surfaces travel with its own batch
                 with tracing.span("halo.upload"):
-                    call = (torch.from_numpy(np.ascontiguousarray(chunk)).to(
-                        self.device), None if centers is None else
-                        torch.from_numpy(np.ascontiguousarray(
+                    lanes = torch.from_numpy(np.ascontiguousarray(chunk)).to(
+                        self.device)
+                    call = {"ev": lanes[:, :5]}
+                    if centers is not None:
+                        call["r2f"] = lanes[:, 5]
+                        call["r2c"] = torch.from_numpy(np.ascontiguousarray(
                             centers[c][:, rank * rows:(rank + 1) * rows])).to(
-                                self.device))
+                                self.device)
                 yield call
 
         return nn, perm, calls()
 
-    def _run_halo_call(self, call, sharded: bool):
-        """One call's micro-steps on this rank: its wire lanes (int32
-        [spc, C, k], uint8 [spc, k]) on the device."""
-        chunk, t_c2 = call
-        bs = self._bs if sharded else 0
-        mains, auxs = [], []
+    def _run_halo_call(self, call: dict, sharded: bool):
+        """One call's micro-steps on this rank's band: its wire lanes
+        (int32 [spc, C, k], uint8 [spc, k]) on the device."""
+        shard = Band(self.cfg, self.band, self._bs if sharded else 0)
         with tracing.span("halo.launch"):
-            for i, b in enumerate(chunk):
-                self.state, (main, aux) = _step(
-                    self.state, b[0], b[1], b[2], b[4] != 0, self.cfg,
-                    self.band, None if t_c2 is None else b[5] != 0,
-                    None if t_c2 is None else t_c2[i], bs)
-                mains.append(main)
-                auxs.append(aux)
-            return torch.stack(mains), torch.stack(auxs)
+            self.state, out = scan_chunk(self.state, call, self.cfg, None,
+                                         shard)
+        return out
 
     def _gather(self, main: torch.Tensor, aux: torch.Tensor, sharded: bool):
         """One call's wire block on rank 0 (on the device), None elsewhere.

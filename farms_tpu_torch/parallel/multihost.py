@@ -14,10 +14,11 @@ on its cards.
 - Every rank uploads the whole 4 B/lane batch and scatters every winner
   (JAX all-gathers the ev-sharded lanes on the device for the scatter;
   the result is the same).
-- Rank (i, j) produces the outputs of event shard j's lanes: with tx > 1
-  the halo engine's shard step (parallel/halo.py `_step`) on its band
-  group, summed over the band by the -0.0 rule; with tx = 1 the
-  event-parallel engine's step (parallel/dp.py).
+- Rank (i, j) produces the outputs of event shard j's lanes, with the
+  one micro-step (pipeline/engine.py) on its shard: with tx > 1 its row
+  band (parallel/halo.py `Band`) on its band group, summed over the band
+  by the -0.0 rule; with tx = 1 the whole sensor, as the event-parallel
+  engine (parallel/dp.py).
 - `process` returns the complete FlowOutput on every rank (one all-gather
   of each call's wire lanes); `write_flow_distributed` writes the output
   file with no output all-gather: each rank decodes its own lanes.
@@ -30,7 +31,6 @@ from __future__ import annotations
 import os
 
 import numpy as np
-import torch
 
 from farms_tpu_torch.config import FlowConfig
 from farms_tpu_torch.events.io import (OUTPUT_SUFFIX, EventBatch,
@@ -38,11 +38,10 @@ from farms_tpu_torch.events.io import (OUTPUT_SUFFIX, EventBatch,
 from farms_tpu_torch.ops.kernels import WIRE_COLUMNS
 from farms_tpu_torch.parallel import mesh as meshlib
 from farms_tpu_torch.parallel.dp import ShardedFlowEngine
-from farms_tpu_torch.parallel.halo import (_step, band_of, gather_bands,
+from farms_tpu_torch.parallel.halo import (Band, band_of, gather_bands,
                                            gather_lanes)
 from farms_tpu_torch.parallel.mesh import (init_distributed,  # noqa: F401
                                            make_global_mesh)
-from farms_tpu_torch.pipeline.engine import _decode_batch
 from farms_tpu_torch.state.surfaces import SurfaceState
 
 
@@ -61,6 +60,8 @@ class MultiHostFlowEngine(ShardedFlowEngine):
         super().__init__(cfg, device=device, mesh=mesh)
         # non-divisible widths pad up (pad rows are never written)
         self.cfg = cfg.padded_to(mesh.tx)
+        if self._banded:
+            self.shard = Band(self.cfg, mesh.band)
         self.reset()
 
     @property
@@ -96,22 +97,6 @@ class MultiHostFlowEngine(ShardedFlowEngine):
             # only this band's rows of the center surfaces are uploaded
             kw.update(center_rows=slice(i * rows, (i + 1) * rows))
         return super().device_calls(ev, steps_per_call, **kw)
-
-    def _run_call(self, chunk: dict):
-        if not self._banded:
-            return super()._run_call(chunk)
-        mains, auxs = [], []
-        for s in range(chunk["ev"].shape[0]):
-            batch = {k: v[s] for k, v in chunk.items()}
-            x, y, t, win = _decode_batch(batch, self.cfg)
-            corr = "r2c" in batch
-            self.state, (main, aux) = _step(
-                self.state, x, y, t, win, self.cfg, self.mesh.band,
-                cflag=batch["r2f"] != 0 if corr else None,
-                t_c2=batch.get("r2c"), lanes=self.lanes)
-            mains.append(main)
-            auxs.append(aux)
-        return torch.stack(mains), torch.stack(auxs)
 
     def _held(self):
         """(axis, lanes): the ranks whose held lanes lie end to end in

@@ -7,8 +7,8 @@ process group). JAX shards every [W, H] surface over a ('tx',) or ('tx',
 prefix sums of the integral image; its `state_sharding` annotates the
 surfaces for that partitioner. The port has no partitioner, so it has no
 counterpart of `state_sharding`: each rank keeps its tile explicitly and
-every halo is explicit, in both axes (parallel/halo.py's shard step `_step`
-with a `tile`):
+every halo is explicit, in both axes (the one micro-step of
+pipeline/engine.py on parallel/halo.py's shard `Tile`):
 
 - the plane fit reads an R-deep halo of the time surfaces, rows from the
   x ring, then columns of the row-extended array from the y ring (which
@@ -34,9 +34,9 @@ import torch.distributed as dist
 from farms_tpu_torch.config import FlowConfig
 from farms_tpu_torch.events.io import EventBatch, FlowOutput
 from farms_tpu_torch.parallel import mesh as meshlib
-from farms_tpu_torch.parallel.halo import _step, gather_summed
-from farms_tpu_torch.pipeline.engine import (FlowEngine, _decode_batch,
-                                             _empty_output, refuse_sparse)
+from farms_tpu_torch.parallel.halo import Tile, gather_summed
+from farms_tpu_torch.pipeline.engine import (FlowEngine, _empty_output,
+                                             refuse_sparse, scan_chunk)
 from farms_tpu_torch.state.surfaces import SurfaceState, strip_state
 
 _FIELDS = ("t_surf", "epoch", "flow_len", "flow_vx", "flow_vy")
@@ -78,6 +78,7 @@ class SpatialFlowEngine(FlowEngine):
         # geometry; the tiles hold the padded one
         super().__init__(cfg, device)
         self.cfg = cfg.padded_to(mesh.tx, mesh.ty)
+        self.shard = Tile(self.cfg, mesh)
         self.reset()
 
     def _tile(self, state: SurfaceState) -> SurfaceState:
@@ -132,18 +133,9 @@ class SpatialFlowEngine(FlowEngine):
         (int32 [spc, C, k], uint8 [spc, k]) on the device, the grid's
         reduce-scatter slice (all lanes where the grid does not divide
         the chunk)."""
-        mains, auxs = [], []
-        for s in range(chunk["ev"].shape[0]):
-            batch = {k: v[s] for k, v in chunk.items()}
-            x, y, t, win = _decode_batch(batch, self.cfg)
-            corr = "r2c" in batch
-            self.state, (main, aux) = _step(
-                self.state, x, y, t, win, self.cfg, self.mesh.x,
-                cflag=batch["r2f"] != 0 if corr else None,
-                t_c2=batch.get("r2c"), tile=self.mesh)
-            mains.append(main)
-            auxs.append(aux)
-        return torch.stack(mains), torch.stack(auxs)
+        self.state, out = scan_chunk(self.state, chunk, self.cfg, None,
+                                     self.shard)
+        return out
 
     def _gather(self, main: torch.Tensor, aux: torch.Tensor):
         """One call's whole wire block on rank 0 (on the device), None

@@ -13,6 +13,9 @@ a CUDA engine, with `decode_wire_columns` on a CPU engine). The sparse
 wire (`wire="sparse"`) compacts each call's output on the device to the
 lanes that carry flow (`_sparse_pack_outputs`); `process_resident` runs a
 whole stream as one uploaded call of the explicit 5-row layout, for timing.
+Every engine runs the one micro-step here, looped by `scan_chunk`, over
+its shard (`Sensor`: the whole sensor; parallel/halo.py's `Band` and
+`Tile`: a row band and a tile of it).
 
 Sequential-semantics note: the reference is strictly event-serial. A
 micro-batch instead scatters its events first, then computes every flow
@@ -109,37 +112,6 @@ def wire_pack(vx, vy, tvx_g, tvy_g, aux_f, cfg: FlowConfig):
     return main, aux
 
 
-def wire_maps(gate_map, vx_map, vy_map, tvx_map, tvy_map, scale_map,
-              cfg: FlowConfig, packed: bool | None = None):
-    """Stack the dense per-pixel maps the wire needs.
-
-    f32 wire, or `packed=False`: [5, W, H] f32 - vx, vy, gated true_vx,
-    gated true_vy, aux byte value. f16 wire (`packed` by default): [3, W,
-    H] - the two f16 component pairs packed into int32 at map level
-    (viewed as f32 so one gather moves all rows) and the aux row; the same
-    wire bytes as packing after the gather. Callers that sum lanes across
-    ranks (parallel/halo.py) pass packed=False: f32 arithmetic on packed
-    f16-pair bit patterns is not bit-preserving. Non-finite values are
-    scrubbed (they arise only with min_evts_on_plane <= 0).
-    """
-    if packed is None:
-        packed = cfg.wire != "f32"
-    aux_f = torch.where(gate_map, 128 + scale_map // cfg.window_jump,
-                        0).to(torch.float32)
-
-    def sc(a):
-        return torch.nan_to_num(a, nan=0.0, posinf=0.0, neginf=0.0)
-
-    tvx_g = torch.where(gate_map, tvx_map, 0.0)
-    tvy_g = torch.where(gate_map, tvy_map, 0.0)
-    if packed:
-        p0 = _f16_pair(sc(vx_map), sc(vy_map)).view(torch.float32)
-        p1 = _f16_pair(sc(tvx_g), sc(tvy_g)).view(torch.float32)
-        return torch.stack([p0, p1, aux_f], 0)
-    maps = sc(torch.stack([vx_map, vy_map, tvx_g, tvy_g], 0))
-    return torch.cat([maps, aux_f[None]], 0)
-
-
 def wire_n_main_rows(cfg: FlowConfig) -> int:
     return 4 if cfg.wire == "f32" else 2
 
@@ -204,39 +176,6 @@ def _scrub(a: torch.Tensor) -> torch.Tensor:
     return torch.nan_to_num(a, nan=0.0, posinf=0.0, neginf=0.0)
 
 
-def _lane_table(a, b, last, cfg: FlowConfig,
-                packed: bool | None = None) -> torch.Tensor:
-    """A [F, W, H] table of per-pixel wire rows: the component maps a, b
-    (scrubbed) as one f16 pair (f32 bits) on the f16 wire, or as two f32
-    rows (f32 wire, or packed=False), then `last` as f32. The plane fit's
-    table is (vx, vy, gate), the aperture's (true_vx, true_vy, scale),
-    ungated."""
-    if packed is None:
-        packed = cfg.wire != "f32"
-    last = last.to(torch.float32)
-    if packed:
-        pair = _f16_pair(_scrub(a), _scrub(b)).view(torch.float32)
-        return torch.stack([pair, last])
-    return torch.stack([_scrub(a), _scrub(b), last])
-
-
-def _merge_lanes(loc: torch.Tensor, tf: torch.Tensor, cfg: FlowConfig,
-                 packed: bool | None = None):
-    """Wire lanes from gathered plane-fit rows `loc` and aperture rows
-    `tf` (_lane_table rows, `packed` alike): the true flow and the aux
-    byte (128 + scale id) are gated by the plane fit's validity. A zero f32
-    pattern is the f16 pair (0, 0), so the gating is bit-exact on either
-    wire."""
-    if packed is None:
-        packed = cfg.wire != "f32"
-    gate = loc[-1] != 0
-    aux_f = torch.where(gate, 128 + tf[-1] // cfg.window_jump, 0.0)
-    if packed:
-        return torch.stack([loc[0], torch.where(gate, tf[0], 0.0), aux_f])
-    return torch.stack([loc[0], loc[1], torch.where(gate, tf[0], 0.0),
-                        torch.where(gate, tf[1], 0.0), aux_f])
-
-
 def _take(tables: list, idx: torch.Tensor) -> torch.Tensor:
     """One flat gather from [F, W, H] tables laid end to end: idx =
     table * W*H + pixel. A spare zero column takes the padded lanes'
@@ -272,26 +211,151 @@ def _coarse(cfg: FlowConfig, P: int) -> int:
     return A if A and A < P and P % A == 0 else 0
 
 
+class _LaneRows:
+    """The per-pixel rows a micro-step gathers for its lanes, and the wire
+    pair they become.
+
+    On the f16 wire each component pair is packed at map level into one
+    f16-pair word (viewed as f32, so one gather moves every row): the
+    same wire bytes as packing after the gather. Lanes summed across
+    ranks keep f32 rows and are packed after the sum, since f32
+    arithmetic on packed f16-pair words is not bit-preserving; so are the
+    f32 wire's lanes and the per-event phases'. This is the one place
+    that decides. Non-finite components are scrubbed (they arise only
+    with min_evts_on_plane <= 0).
+    """
+
+    def __init__(self, cfg: FlowConfig, summed: bool):
+        self.cfg = cfg
+        self.packed = cfg.wire != "f32" and cfg.use_dense and not summed
+
+    def table(self, a, b, last) -> torch.Tensor:
+        """A [F, W, H] table: the component maps a, b as one f16 pair (f32
+        bits) or two f32 rows, then `last` as f32. The plane fit's table
+        is (vx, vy, gate), the aperture's (true_vx, true_vy, scale),
+        ungated."""
+        last = last.to(torch.float32)
+        if self.packed:
+            pair = _f16_pair(_scrub(a), _scrub(b)).view(torch.float32)
+            return torch.stack([pair, last])
+        return torch.stack([_scrub(a), _scrub(b), last])
+
+    def merge(self, loc: torch.Tensor, tf: torch.Tensor) -> torch.Tensor:
+        """Wire lanes from gathered plane-fit rows `loc` and aperture rows
+        `tf` (table rows): the true flow and the aux byte (128 + scale id)
+        are gated by the plane fit's validity. A zero f32 pattern is the
+        f16 pair (0, 0), so the gating is bit-exact on either wire."""
+        gate = loc[-1] != 0
+        aux_f = torch.where(gate, 128 + tf[-1] // self.cfg.window_jump, 0.0)
+        if self.packed:
+            return torch.stack([loc[0], torch.where(gate, tf[0], 0.0), aux_f])
+        return torch.stack([loc[0], loc[1], torch.where(gate, tf[0], 0.0),
+                            torch.where(gate, tf[1], 0.0), aux_f])
+
+    def maps(self, gate_map, vx_map, vy_map, tvx_map, tvy_map, scale_map):
+        """The dense maps of every wire row: packed [3, W, H] (the two f16
+        pairs, the aux byte value), else [5, W, H] f32 (vx, vy, gated
+        true_vx, gated true_vy, aux byte value)."""
+        aux_f = torch.where(gate_map, 128 + scale_map // self.cfg.window_jump,
+                            0).to(torch.float32)
+        tvx_g = torch.where(gate_map, tvx_map, 0.0)
+        tvy_g = torch.where(gate_map, tvy_map, 0.0)
+        if self.packed:
+            p0 = _f16_pair(_scrub(vx_map), _scrub(vy_map)).view(torch.float32)
+            p1 = _f16_pair(_scrub(tvx_g), _scrub(tvy_g)).view(torch.float32)
+            return torch.stack([p0, p1, aux_f], 0)
+        maps = _scrub(torch.stack([vx_map, vy_map, tvx_g, tvy_g], 0))
+        return torch.cat([maps, aux_f[None]], 0)
+
+    def wire(self, rows: torch.Tensor):
+        """The wire pair (int32 [C, k], uint8 [k]) of [F, k] lane rows."""
+        if self.packed:
+            return rows[:2].view(torch.int32), rows[2].to(torch.uint8)
+        return wire_pack(rows[0], rows[1], rows[2], rows[3], rows[4],
+                         self.cfg)
+
+
+class Sensor:
+    """The shard of the sensor that a micro-step runs on: by default the
+    whole sensor; parallel/halo.py's `Band` and `Tile` are a row band and
+    a tile of it on a group of ranks. A shard owns what differs between
+    them: its core extent (rows, cols), the time surfaces' support halo,
+    the plane-fit and pooling calls, and whether the lanes are summed
+    across ranks. The whole sensor has no halo and sums nothing.
+    """
+
+    bs = 0           # lanes of an owner-sharded segment (Band), 0: none
+    summed = None    # the mesh.Axis over whose ranks the lanes are summed
+
+    def __init__(self, cfg: FlowConfig):
+        self.cfg = cfg
+        self.rows, self.cols = cfg.array_width, cfg.array_height
+
+    def lanes(self, x, y, is_winner):
+        """(gx, gy, pix, wpix, in_core) of a step's lanes: the cell whose
+        outputs a lane gathers, its flat index, the flat index a winner
+        scatters to (the others go to the spare cell rows * cols, which
+        nothing reads), and the lanes this shard owns (None: all)."""
+        pix = x.to(torch.int64) * self.cols + y.to(torch.int64)
+        return x, y, pix, torch.where(is_winner, pix,
+                                      self.rows * self.cols), None
+
+    def ext(self, surf: torch.Tensor) -> torch.Tensor:
+        """A time surface with the plane fit's support halo."""
+        return surf
+
+    def core(self, surf_ext: torch.Tensor) -> torch.Tensor:
+        """The shard's own cells of an ext() surface."""
+        return surf_ext
+
+    def fit(self, chain, center, fold_center: bool = True):
+        """kernels.local_flow over ext() surfaces; in correction mode
+        (fold_center False) `center` is the shard's own cells."""
+        return kernels.local_flow(chain, center, self.cfg, fold_center)
+
+    def pool(self, flow_len, flow_vx, flow_vy):
+        """kernels.aperture over the shard's flow surfaces."""
+        return kernels.aperture(flow_len, flow_vx, flow_vy, self.cfg)
+
+    def own(self, rows: torch.Tensor, in_core, sl: slice) -> torch.Tensor:
+        """Gathered [F, k] rows of the lanes `sl`, as the sum over
+        `summed` takes them."""
+        return rows
+
+    def sum(self, rows: torch.Tensor) -> torch.Tensor:
+        """[F, k] lane rows summed over `summed`."""
+        return rows
+
+
 def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig,
-               lanes: tuple[int, int] | None = None):
+               lanes: tuple[int, int] | None = None,
+               shard: Sensor | None = None):
     """Process one micro-batch of events against the carried surfaces.
 
     `batch` is the dict of one packed micro-step (see _decode_batch), with
-    the correction pass's "r2f" uint8 [m] corrected-lane flags and "r2c"
-    int32 [W, H] stamp1 center surface (FlowEngine.pack_r2). Returns the new
-    state and the wire pair (int32 [C, k], uint8 [k]); the state passed in
-    is not modified. Every lane scatters; `lanes` = (lo, hi) is the window
-    of lanes whose outputs are gathered, k = hi - lo (all m by default):
-    an event-parallel rank's shard (parallel/dp.py).
+    the correction pass's "r2f" [m] corrected-lane flags and "r2c" int32
+    stamp1 center surface (FlowEngine.pack_r2; the shard's cells of it).
+    Returns the new state and the wire pair (int32 [C, k], uint8 [k]); the
+    state passed in is not modified. Every lane scatters; `lanes` = (lo,
+    hi) is the window of lanes whose outputs are gathered, k = hi - lo
+    (all by default): an event-parallel rank's shard (parallel/dp.py).
 
-    The surfaces are at the config's array geometry: a padded config's
-    pad cells are never written, and its lanes' flat indices (semantic
-    x * H + y in the batch) address the array's x * Ha + y.
+    `shard` is the part of the sensor the state holds (Sensor: the whole
+    sensor by default; parallel/halo.py: a row band or a tile, whose
+    engines build it from their mesh). Its surfaces are at the config's
+    array geometry: a padded config's pad cells are never written, and
+    its lanes' flat indices (semantic x * H + y in the batch) address the
+    array's x * Ha + y. On an owner-sharded band (shard.bs > 0) the batch
+    holds this rank's P*S sub-group segments of bs lanes, then P lanes
+    whose stamps start the phases.
 
     The chunk's lanes run as cfg.sub_phases = P chronological groups in
     turn: each group's winners are scattered and its flows computed against
     the surfaces every earlier group left, and the staleness kill re-runs
-    at each group's start. Fidelity features (farms_tpu.config):
+    at each group's start. All phases' scatters (and a shard's halo
+    exchanges) come first, then the stencils: every rank of a band group
+    issues the same collectives in the same order. Fidelity features
+    (farms_tpu.config):
 
     - causal_snapshots S > 1: a phase scatters as S chronological
       sub-groups and the plane fit folds its causal view over every
@@ -306,84 +370,95 @@ def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig,
       chunk's chain, and every lane is assembled at the end from merged
       plane-fit and aperture tables.
 
-    With cfg.use_dense False a phase runs the per-event formulation
-    instead (ops/local_flow.py, ops/aperture.py): each lane gathers its own
-    support and pools its own windows, and only the phase's winners write
-    the flow surfaces. It has none of the features above but the phases.
+    With cfg.use_dense False (the whole sensor only) a phase runs the
+    per-event formulation instead (ops/local_flow.py, ops/aperture.py):
+    each lane gathers its own support and pools its own windows, and only
+    the phase's winners write the flow surfaces. It has none of the
+    features above but the phases.
     """
+    shard = shard or Sensor(cfg)
     x, y, t, is_winner = _decode_batch(batch, cfg)
     r2f, r2c = batch.get("r2f"), batch.get("r2c")
-    W, H = cfg.array_width, cfg.array_height
-    WH = W * H
-    m = x.shape[0]
-    lanes = lanes or (0, m)
-    P, S, links = _phasing(m, cfg)
-    mp = m // P
-    ms = mp // S
     corr = cfg.center_correction > 0 and r2f is not None and r2c is not None
+    # an owner-sharded batch ends in the P lanes of phase start stamps
+    head = x.shape[0] - (cfg.sub_phases if shard.bs else 0)
+    P, S, links = _phasing(head, cfg)
+    seg = head // P                     # lanes of one phase
+    sub = seg // S                      # lanes of one scatter sub-group
+    lo, hi = lanes or (0, head)
     A = cfg.aperture_sub_phases
     coarse = _coarse(cfg, P) if cfg.use_dense else 0
     # fine aperture groups per phase; a count that does not divide the
-    # phase would drop its trailing lanes, and correction forbids it
-    k = max(1, A // P) if A else 1
-    if mp % k or corr:
-        k = 1
-    mg = mp // k
-
-    t_surf, epoch = state.t_surf, state.epoch
-    flow_len, flow_vx, flow_vy = state.flow_len, state.flow_vx, state.flow_vy
-    # flat pixel index per lane; non-winners (and padded lanes) go to the
-    # spare cell WH of the scatter buffers, which nothing reads
-    pix = x.to(torch.int64) * H + y.to(torch.int64)
-    wpix = torch.where(is_winner, pix, WH)
+    # phase would drop its trailing lanes, and correction and the
+    # owner-sharded layout forbid it
+    kf = max(1, A // P) if A else 1
+    if shard.bs or seg % kf or corr:
+        kf = 1
+    mg = seg // kf
+    rows_of = _LaneRows(cfg, shard.summed is not None)
+    gx, gy, pix, wpix, in_core = shard.lanes(x, y, is_winner)
     t1 = t + 1                                  # stamp1 encoding
-    chunk_chain = [t_surf] if corr else None
-    loc_maps, ap_tables, pending, lanes_out = [], [], [], []
+
+    def gather(maps, sl):
+        return shard.own(onehot_gather(maps, gx[sl], gy[sl], shard.rows,
+                                       shard.cols), in_core, sl)
+
+    # ---- pass 1: every phase's scatters of the winners' stamp1 as S
+    # chronological sub-groups, keeping each boundary surface (with its
+    # halo) for the causal fold; a phase's pre-scatter surface is the
+    # previous phase's post one ----
+    t_surf, epoch = state.t_surf, state.epoch
+    pre = shard.ext(t_surf)
+    chunk_chain = [pre] if corr else None
+    phases = []
     for p in range(P):
-        sl = slice(p * mp, (p + 1) * mp)
-        xs, ys, ts = x[sl], y[sl], t[sl]
-
-        # ---- permanent staleness kill (exact; see state/surfaces.py);
-        # with coarse pooling only at aperture-group starts: flow_len
-        # feeds pooling alone, and an earlier kill would erase the
-        # group's temporal neighborhood before its pooling pass ----
-        if not coarse or p % (P // coarse) == 0:
-            flow_len = kill_stale_flow(flow_len, t_surf, ts[0], cfg)
-
-        # ---- scatter the winners' stamp1 as S chronological sub-groups,
-        # keeping each boundary surface for the causal fold ----
-        t_pre = t_surf
-        snaps = []
+        surfs = []
         for si in range(S):
-            ssl = slice(p * mp + si * ms, p * mp + (si + 1) * ms)
+            ssl = slice(p * seg + si * sub, p * seg + (si + 1) * sub)
             t_surf = _scatter(t_surf, wpix[ssl], t1[ssl])
-            if si < S - 1:
-                snaps.append(t_surf)
-            if corr and si in links:
-                chunk_chain.append(t_surf)
-        # ---- the phase's write epoch, one scatter for all S sub-groups:
-        # every write of the phase carries the same value, so `written`
-        # holds each pixel a winner wrote, equal-stamp rewrites included
-        # (t_surf != t_pre misses those) ----
+            surfs.append(shard.ext(t_surf))
+        if corr:
+            chunk_chain += [surfs[si] for si in links]
+        # the phase's write epoch, one scatter for all S sub-groups: every
+        # write of the phase carries the same value, so `written` holds
+        # each pixel a winner wrote, equal-stamp rewrites included
+        # (t_surf != t_pre misses those)
         ep_val = state.step * P + p            # unique, monotone epoch
-        epoch = _scatter(epoch, wpix[sl], ep_val)
-        osl = lane_range(sl, lanes)       # this phase's gathered lanes
+        epoch = _scatter(epoch, wpix[p * seg:(p + 1) * seg], ep_val)
+        phases.append((pre, surfs, epoch == ep_val if cfg.use_dense
+                       else None))
+        pre = surfs[-1]
+
+    # ---- pass 2: the stencils, phase by phase ----
+    flow_len, flow_vx, flow_vy = state.flow_len, state.flow_vx, state.flow_vy
+    loc_maps, ap_tables, pending, lanes_out = [], [], [], []
+    for p, (pre, surfs, written) in enumerate(phases):
+        sl = slice(p * seg, (p + 1) * seg)
+        osl = lane_range(sl, (lo, hi))    # this phase's gathered lanes
+        post = surfs[-1]
+
+        # ---- permanent staleness kill (exact; see state/surfaces.py)
+        # against the phase's pre-scatter surface; with coarse pooling
+        # only at aperture-group starts: flow_len feeds pooling alone, and
+        # an earlier kill would erase the group's temporal neighborhood
+        # before its pooling pass ----
+        if not coarse or p % (P // coarse) == 0:
+            flow_len = kill_stale_flow(
+                flow_len, shard.core(pre),
+                t[head + p] if shard.bs else t[sl.start], cfg)
         if not cfg.use_dense:
             plane, flow_len, flow_vx, flow_vy = _perevent_phase(
-                t_pre, t_surf, flow_len, flow_vx, flow_vy, xs, ys,
-                t1[sl], wpix[sl], cfg)
+                pre, post, flow_len, flow_vx, flow_vy, x[sl], y[sl], t1[sl],
+                wpix[sl], cfg)
             if osl:
                 lanes_out.append(plane[:, osl.start - sl.start:
                                        osl.stop - sl.start])
             continue
-        written = epoch == ep_val
 
         # ---- local plane fit (kernel 1 or 2) and its trig tail ----
-        chain = torch.stack([t_pre, *snaps]) if snaps else t_pre[None]
-        accept, a_coef, b_coef, dtdp, _ = kernels.local_flow(chain, t_surf,
-                                                             cfg)
+        chain = torch.stack([pre, *surfs[:-1]]) if S > 1 else pre[None]
         vx_map, vy_map, gate_map, len_map, _ = trig_tail(
-            accept, a_coef, b_coef, dtdp)
+            *shard.fit(chain, post)[:4])
 
         # flow-surface writes for every pixel written this group
         # (vFlow.cpp:349-356 valid / 398-402 invalid)
@@ -395,42 +470,37 @@ def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig,
             written, torch.where(gate_map, vy_map, 0.0), flow_vy)
 
         # ---- multi-scale aperture pooling (kernel 3) ----
-        if coarse:
-            loc = _lane_table(vx_map, vy_map, gate_map, cfg)
-            if corr:
-                loc_maps.append(loc)
-            elif osl:
-                pending.append((x[osl], y[osl],
-                                onehot_gather(loc, x[osl], y[osl], W, H)))
-            if (p + 1) % (P // coarse) == 0:
-                amaps = _lane_table(*kernels.aperture(
-                    flow_len, flow_vx, flow_vy, cfg), cfg)
-                if corr:
-                    ap_tables.append(amaps)
-                for gxs, gys, gloc in pending:
-                    lanes_out.append(_merge_lanes(
-                        gloc, onehot_gather(amaps, gxs, gys, W, H), cfg))
-                pending = []
+        if corr:
+            # every lane is assembled after the correction pass
+            loc_maps.append(rows_of.table(vx_map, vy_map, gate_map))
+        elif coarse and osl:
+            # the plane-fit lanes wait for their group's pooling pass
+            pending.append((osl, gather(rows_of.table(vx_map, vy_map,
+                                                      gate_map), osl)))
+        if coarse and (p + 1) % (P // coarse):
             continue
-        for g in range(k):
+        for g in range(kf):
             if g:
-                flow_len = kill_stale_flow_in_phase(flow_len, t_surf,
-                                                    ts[g * mg], cfg)
-            tvx_map, tvy_map, scale_map = kernels.aperture(
-                flow_len, flow_vx, flow_vy, cfg)
+                # fine phasing: the in-phase kill against the phase's
+                # post-scatter surface
+                flow_len = kill_stale_flow_in_phase(
+                    flow_len, shard.core(post), t[sl.start + g * mg], cfg)
+            tvx_map, tvy_map, scale_map = shard.pool(flow_len, flow_vx,
+                                                     flow_vy)
             if corr:
-                # every lane is assembled after the correction pass
-                ap_tables.append(_lane_table(tvx_map, tvy_map, scale_map,
-                                             cfg))
-                loc_maps.append(_lane_table(vx_map, vy_map, gate_map, cfg))
-                continue
-            gsl = lane_range(slice(p * mp + g * mg, p * mp + (g + 1) * mg),
-                             lanes)
-            if gsl is None:
-                continue
-            maps = wire_maps(gate_map, vx_map, vy_map, tvx_map, tvy_map,
-                             scale_map, cfg)
-            lanes_out.append(onehot_gather(maps, x[gsl], y[gsl], W, H))
+                ap_tables.append(rows_of.table(tvx_map, tvy_map, scale_map))
+            elif coarse:
+                amaps = rows_of.table(tvx_map, tvy_map, scale_map)
+                for gsl, gloc in pending:
+                    lanes_out.append(rows_of.merge(gloc, gather(amaps, gsl)))
+                pending = []
+            else:
+                gsl = lane_range(slice(sl.start + g * mg,
+                                       sl.start + (g + 1) * mg), (lo, hi))
+                if gsl:
+                    lanes_out.append(gather(rows_of.maps(
+                        gate_map, vx_map, vy_map, tvx_map, tvy_map,
+                        scale_map), gsl))
 
     if corr:
         # ---- rank-2 center correction: one local-flow pass per chunk in
@@ -439,27 +509,23 @@ def micro_step(state: SurfaceState, batch: dict, cfg: FlowConfig,
         # set: a lane reads its plane-fit rows from its phase's table, or
         # from the correction pass's where flagged, and its true-flow rows
         # from its aperture pass's table ----
-        acc2, a2, b2, dtdp2, _ = kernels.local_flow(
-            torch.stack(chunk_chain), r2c, cfg, fold_center=False)
-        vx2, vy2, gate2, _, _ = trig_tail(acc2, a2, b2, dtdp2)
-        loc_maps.append(_lane_table(vx2, vy2, gate2, cfg))
-        lo, hi = lanes
+        vx2, vy2, gate2, _, _ = trig_tail(*shard.fit(
+            torch.stack(chunk_chain), r2c, fold_center=False)[:4])
+        loc_maps.append(rows_of.table(vx2, vy2, gate2))
         lane = torch.arange(lo, hi, device=x.device)
-        table = torch.where(r2f[lo:hi] != 0, len(loc_maps) - 1, lane // mp)
-        loc = _take(loc_maps, table * WH + pix[lo:hi])
-        tf = _take(ap_tables,
-                   lane // (m // len(ap_tables)) * WH + pix[lo:hi])
-        rows = _merge_lanes(loc, tf, cfg)
+        table = torch.where(r2f[lo:hi] != 0, len(loc_maps) - 1, lane // seg)
+        cells = shard.rows * shard.cols
+        held = slice(lo, hi)
+        loc = shard.own(_take(loc_maps, table * cells + pix[held]), in_core,
+                        held)
+        tf = shard.own(_take(ap_tables, lane // (head // len(ap_tables))
+                             * cells + pix[held]), in_core, held)
+        rows = rows_of.merge(loc, tf)
     else:
         rows = torch.cat(lanes_out, 1)
-    if cfg.use_dense and cfg.wire != "f32":
-        # the rows are already the f16 pair words (as f32 bits) + aux
-        out = (rows[:2].view(torch.int32), rows[2].to(torch.uint8))
-    else:
-        out = wire_pack(rows[0], rows[1], rows[2], rows[3], rows[4], cfg)
     new_state = SurfaceState(t_surf, epoch, flow_len, flow_vx, flow_vy,
                              state.step + 1)
-    return new_state, out
+    return new_state, rows_of.wire(shard.sum(rows))
 
 
 def _perevent_phase(t_pre, t_surf, flow_len, flow_vx, flow_vy, xs, ys, t1s,
@@ -552,19 +618,22 @@ def refuse_sparse(cfg: FlowConfig) -> None:
 
 
 def scan_chunk(state: SurfaceState, chunk: dict, cfg: FlowConfig,
-               lanes: tuple[int, int] | None = None):
-    """Run the micro-steps of one call in order.
+               lanes: tuple[int, int] | None = None,
+               shard: Sensor | None = None):
+    """Run the micro-steps of one call in order: the step loop of every
+    engine.
 
     `chunk` is a micro_step batch dict with a leading [n_steps] axis on
     every entry. Returns the final state and the stacked wire pair
     (int32 [n_steps, C, k], uint8 [n_steps, k]) of the gathered `lanes`
-    (micro_step; all m by default).
+    of the `shard` (micro_step; all lanes of the whole sensor by
+    default).
     """
     mains, auxs = [], []
     n_steps = chunk["ev"].shape[0]
     for i in range(n_steps):
         state, (main, aux) = micro_step(
-            state, {k: v[i] for k, v in chunk.items()}, cfg, lanes)
+            state, {k: v[i] for k, v in chunk.items()}, cfg, lanes, shard)
         mains.append(main)
         auxs.append(aux)
     return state, (torch.stack(mains), torch.stack(auxs))
