@@ -1397,6 +1397,31 @@ def _counted(label, run, want_launches):
     return result, launches
 
 
+def _ran_on_card(label, run, want_launches, traces: int = 3):
+    """run() inside a torch.profiler trace: the kernels the card ran, each
+    counted by its name among the trace's device events
+    (kernels.device_launches: a CUDA graph replay's kernels too), must be
+    want_launches (0 for a kernel not named). Up to `traces` traces, as a
+    trace now and then drops a device event. Returns (run's result, the
+    counts)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from farms_tpu_torch.ops import kernels
+
+    want = {k: want_launches.get(k, 0) for k in kernels.LAUNCHES}
+    for _ in range(traces):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            result = run()
+            torch.cuda.synchronize()
+        seen = kernels.device_launches(prof.events())
+        if seen == want:
+            return result, seen
+    raise AssertionError(f"{label}: the card ran kernels {seen}, expected "
+                         f"{want}")
+
+
 def _cli_path(label, argv, base, n_events, want_launches, keep=None):
     """One main path through the CLI on the card, then on the CPU: the
     kernels' launch counts over the card's run and card vs CPU agreement.
@@ -1837,10 +1862,12 @@ def check_sparse(base, card_files, smi):
 def check_resident(base):
     """Phase 15: FlowEngine.process_resident at both presets on the card:
     the stream as one uploaded call of the explicit 5-row layout (the
-    5-row decode on the card), its launch counts, its outputs decoded
-    equal to process() on every column bit for bit, and a replay from the
-    state before the first call equal to the first. Returns {label:
-    (launches, events/s of a timed replay)}."""
+    5-row decode on the card; on the card the call is one CUDA graph), its
+    outputs decoded equal to process() on every column bit for bit, its
+    launch counts (the engine's own, and the kernels a replay from the
+    state before the first call ran on the card, counted from a profiler
+    trace), and every replay equal to the first. Returns {label:
+    (the card's launches in a replay, events/s of a timed replay)}."""
     import torch
     from farms_tpu_torch.events.io import load_events_txt
     from farms_tpu_torch.pipeline.engine import FlowEngine
@@ -1854,15 +1881,23 @@ def check_resident(base):
         eng = FlowEngine(cfg, device="cuda")
         fn, n = eng.process_resident(ev)
         start = eng.state
-        (main, aux), launches = _counted(f"resident {preset}", fn,
-                                         {**want, "decode_wire": 0})
+        want = {**want, "decode_wire": 0}
+        (main, aux), _ = _counted(f"resident {preset}", fn, want)
         got = eng._unpack_outputs([(main, aux)], ev, n)
         _same_columns(f"resident {preset}", got, ref)
+
+        def replay():
+            eng.state = start
+            return fn()
+
+        (main1, aux1), launches = _ran_on_card(f"resident {preset}", replay,
+                                               want)
         eng.state = start
         torch.cuda.synchronize()
         (main2, aux2), wall = _timed(lambda: (fn(), torch.cuda.synchronize())
                                      [0])
-        if not (torch.equal(main, main2) and torch.equal(aux, aux2)):
+        if not all(torch.equal(a, b) for a, b in ((main, main1), (aux, aux1),
+                                                  (main, main2), (aux, aux2))):
             raise AssertionError(f"resident {preset}: replay differs")
         results[f"resident {preset}"] = (launches, n / wall)
         _phase(f"resident {preset}", t0,

@@ -23,10 +23,12 @@
 //   block, so the grid finishes on any number of SMs. A row block starts
 //   once every strip is done: a per-stream counter of finished strips,
 //   raised with a gpu-scope release by each column block and read with
-//   an acquire against this call's target (the host's running total),
-//   so no call resets it. While thread 0 takes the ticket, the producers
-//   already copy the first chunks of strip blockIdx.x (the role a block
-//   mostly gets).
+//   an acquire against the call's strip count. The last row block to
+//   finish sets the stream's ticket and strip counters back to 0, so every
+//   launch starts from 0 and takes no value from the host that changes
+//   from call to call: a CUDA graph may replay one captured launch. While
+//   thread 0 takes the ticket, the producers already copy the first
+//   chunks of strip blockIdx.x (the role a block mostly gets).
 // - Each block is warps around a ring of SLOTS shared-memory slots
 //   (mbarriers): two producers fill a slot of STEPS fold steps, the fold
 //   warp (alone on its scheduler) sums it in place, two storers write it
@@ -360,11 +362,12 @@ static_assert(LANES / STRIP == 4 && STEPS % 8 == 0, "producer lanes");
 static_assert(PRODUCERS == 2 && STORERS == 2 && HALF % BAND == 0,
               "a producer or storer a half, whole fields of a row block");
 
-// Per stream slot: the tickets taken (a block's role is its ticket less
-// the call's first) and the column strips finished, both counted over
-// every call on the slot.
+// Per stream slot, counted within one launch and 0 between launches: the
+// tickets taken (a block's role is its ticket), the column strips
+// finished and the row blocks finished.
 __device__ unsigned long long g_tickets[STREAM_SLOTS];
 __device__ unsigned long long g_strips_done[STREAM_SLOTS];
+__device__ unsigned long long g_exits[STREAM_SLOTS];
 
 // A slot is [fold lane][fold step], rows of PITCH doubles: 16-byte
 // aligned, and 8 lanes' rows fall in 8 distinct 16-byte bank groups, so
@@ -573,11 +576,11 @@ __device__ __forceinline__ void integral_columns(
 }
 
 // Row block `band`: integral rows 1 + band * BAND .., columns 1 .. cols
-// of all 4 fields, over the column sums in place, once `strips_done`
+// of all 4 fields, over the column sums in place, once all `n_strips`
 // column strips are done.
 __device__ __forceinline__ void integral_rows(
     IntegralShared& sh, int band, int rows, int cols,
-    double* __restrict__ integ, int slot, unsigned long long strips_done) {
+    double* __restrict__ integ, int slot, unsigned long long n_strips) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t L = (size_t)cols + 1, plane = (rows + 1) * L;
   const int i0 = 1 + band * BAND;
@@ -592,7 +595,7 @@ __device__ __forceinline__ void integral_rows(
       // a column block that never finishes (a fault) ends the kernel with
       // an error, not a hang
       const long long t0 = clock64();
-      while (farms::load_relaxed(&g_strips_done[slot]) < strips_done)
+      while (farms::load_relaxed(&g_strips_done[slot]) < n_strips)
         if (clock64() - t0 > (1LL << 34)) __trap();
       farms::fence_acq_rel();  // with the relaxed load: an acquire
     }
@@ -650,8 +653,7 @@ __global__ void __launch_bounds__(ROLE_WARPS * 32)
 integral_kernel(const float* __restrict__ flow_len,
                 const float* __restrict__ flow_vx,
                 const float* __restrict__ flow_vy, int rows, int cols,
-                double* __restrict__ integ, int slot,
-                unsigned long long ticket0, unsigned long long strips_done) {
+                double* __restrict__ integ, int slot) {
   extern __shared__ __align__(16) unsigned char integral_smem[];
   IntegralShared& sh = *reinterpret_cast<IntegralShared*>(integral_smem);
   const int n_strips = (cols + STRIP) / STRIP;
@@ -666,8 +668,8 @@ integral_kernel(const float* __restrict__ flow_len,
       stage_chunk(sh, blockIdx.x, pw, k, threadIdx.x % 32, flow_len, flow_vx,
                   flow_vy, rows, cols);
   if (threadIdx.x == 0) {
-    const unsigned long long t = atomicAdd(&g_tickets[slot], 1ULL) - ticket0;
-    if (t >= gridDim.x) __trap();  // a replayed launch
+    const unsigned long long t = atomicAdd(&g_tickets[slot], 1ULL);
+    if (t >= gridDim.x) __trap();  // counters another launch left raised
     sh.role = (int)t;
     for (int s = 0; s < SLOTS; ++s) {
       farms::mbar_init(&sh.full[s], 2 * 32);   // both producer warps
@@ -680,19 +682,30 @@ integral_kernel(const float* __restrict__ flow_len,
   const int role = sh.role;
   const bool staged = guess && role == (int)blockIdx.x;
   if (guess && !staged && pw >= 0) farms::wait<0>();  // drop the guess
-  if (role < n_strips)
+  if (role < n_strips) {
     integral_columns(sh, role, staged, flow_len, flow_vx, flow_vy, rows,
                      cols, integ, slot);
-  else
-    integral_rows(sh, role - n_strips, rows, cols, integ, slot,
-                  strips_done);
+  } else {
+    integral_rows(sh, role - n_strips, rows, cols, integ, slot, n_strips);
+    // The last row block to finish sets the slot's counters back to 0 for
+    // the next launch on the stream. By then every block has taken its
+    // ticket and every column block has counted its strip (each row
+    // block saw all of them), and each row block's last read of the
+    // counters returned before it counts itself finished.
+    __syncthreads();
+    if (threadIdx.x == 0 &&
+        atomicAdd(&g_exits[slot], 1ULL) == gridDim.x - n_strips - 1) {
+      g_tickets[slot] = 0;
+      g_strips_done[slot] = 0;
+      g_exits[slot] = 0;
+    }
+  }
 }
 
-// Each stream's counters on each device (< 64, as for the pool): its
-// slot, and the tickets taken and column strips finished by its calls.
+// The stream that holds each counter slot of each device (< 64, as for
+// the pool).
 struct StreamCounters {
   cudaStream_t stream;
-  unsigned long long tickets, strips;
   bool used;
 };
 std::mutex counters_mu;
@@ -815,21 +828,15 @@ extern "C" int farms_integral(const void* flow_len, const void* flow_vx,
     if (table[i].used && table[i].stream == s) slot = i;
   for (int i = 0; i < STREAM_SLOTS && slot < 0; ++i)
     if (!table[i].used) {
-      table[i] = StreamCounters{s, 0, 0, true};
+      table[i] = StreamCounters{s, true};
       slot = i;
     }
   if (slot < 0) return (int)cudaErrorLaunchOutOfResources;
-  StreamCounters& c = table[slot];
   const int n_strips = (cols + STRIP) / STRIP;
   const int n_blocks = n_strips + (rows + BAND - 1) / BAND;
   integral_kernel<<<n_blocks, ROLE_WARPS * 32, sizeof(IntegralShared), s>>>(
       static_cast<const float*>(flow_len), static_cast<const float*>(flow_vx),
       static_cast<const float*>(flow_vy), rows, cols,
-      static_cast<double*>(integ), slot, c.tickets, c.strips + n_strips);
-  e = cudaGetLastError();
-  if (e == cudaSuccess) {
-    c.tickets += n_blocks;
-    c.strips += n_strips;
-  }
-  return (int)e;
+      static_cast<double*>(integ), slot);
+  return (int)cudaGetLastError();
 }

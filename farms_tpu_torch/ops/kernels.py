@@ -16,7 +16,11 @@ shards of parallel/halo.py) and tile-mode launches (the 2-D tiles of
 parallel/tiling.py) count under the same name. While a torch profiler
 records, local_flow's card path is also the span kernels.local_flow
 (utils/tracing.py), and its general launches the counter
-kernels.local_flow_general_launches.
+kernels.local_flow_general_launches. A call captured into a CUDA graph
+(pipeline/engine.py's resident call) launches nothing at capture: its
+engine takes the capture's counts back and adds them at every replay.
+`device_launches` counts the same names among the kernels a profiler saw
+run on the card, a graph replay's included.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import ctypes
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 from farms_tpu_torch.config import FlowConfig
 from farms_tpu_torch.ops import _build
@@ -38,11 +43,27 @@ WIRE_COLUMNS = ("r_true", "theta_true", "vx", "vy", "r_local", "theta_local",
 
 LAUNCHES = {"local_flow": 0, "local_flow_general": 0, "aperture": 0,
             "integral": 0, "decode_wire": 0}
+# each LAUNCHES entry's CUDA kernel (csrc/), a part of its device name
+DEVICE_KERNELS = {"local_flow": "local_flow_streamed",
+                  "local_flow_general": "local_flow_general",
+                  "aperture": "aperture_kernel", "integral": "integral_kernel",
+                  "decode_wire": "decode_wire_"}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def device_launches(events) -> dict:
+    """LAUNCHES' counts as the card ran them: the device kernels among a
+    torch profiler's events (`prof.events()`), by DEVICE_KERNELS."""
+    counts = dict.fromkeys(LAUNCHES, 0)
+    for e in events:
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            for key, name in DEVICE_KERNELS.items():
+                counts[key] += name in e.name
+    return counts
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:

@@ -17,9 +17,8 @@ from farms_tpu_torch.config import FlowConfig
 from farms_tpu_torch.events.io import EventBatch, FlowOutput
 from farms_tpu_torch.parallel import mesh as meshlib
 from farms_tpu_torch.parallel.halo import gather_lanes
-from farms_tpu_torch.pipeline.engine import (FlowEngine, Sensor,
-                                             _empty_output, refuse_sparse,
-                                             scan_chunk)
+from farms_tpu_torch.pipeline.engine import (FlowEngine, _empty_output,
+                                             refuse_sparse, scan_chunk)
 from farms_tpu_torch.state.surfaces import SurfaceState
 
 
@@ -28,8 +27,6 @@ class ShardedFlowEngine(FlowEngine):
     an event axis (`mesh`, default: every rank of this process's group,
     `num_devices` of them where given). Construct it in every rank, or in
     a process without a group for one rank."""
-
-    shard: Sensor | None = None     # the whole sensor (micro_step's default)
 
     def __init__(self, cfg: FlowConfig, num_devices: int | None = None,
                  device="cuda", mesh: meshlib.Mesh | None = None):

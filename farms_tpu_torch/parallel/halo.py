@@ -543,6 +543,7 @@ class HaloFlowEngine(FlowEngine):
         call = next(calls)
 
         def fn():
+            tracing.count("engine.resident_calls")
             return self._run_halo_call(call, perm is not None)
 
         return fn, len(ev)

@@ -25,11 +25,15 @@ The counters the engines and kernel wrappers keep: `engine.calls` and
 calls, whose step finds each phase's written pixels by the epoch
 scatter), `engine.decoded_lanes` (every lane
 decoded into output columns, on the host or on the card),
-`engine.device_decoded_lanes` (the lanes the decode_wire kernel decoded)
-and `kernels.local_flow_general_launches` (ops/kernels.local_flow: the
-launches of the general plane-fit kernel, k >= 7). Besides the engines'
-stage spans, ops/kernels.local_flow opens `kernels.local_flow` around its
-card path's host work (checks, allocations, the launch).
+`engine.device_decoded_lanes` (the lanes the decode_wire kernel decoded),
+`engine.resident_calls` and `engine.graph_replays` (every fn() of
+FlowEngine.process_resident, and those that replayed a captured CUDA
+graph) and `kernels.local_flow_general_launches` (ops/kernels.local_flow:
+the launches of the general plane-fit kernel, k >= 7; a graph replay adds
+the launches it holds). Besides the engines' stage spans,
+ops/kernels.local_flow opens `kernels.local_flow` around its card path's
+host work (checks, allocations, the launch), which a graph replay does
+not repeat.
 
 The totals are per process: the ranks of a sharded engine each keep
 their own. `reset()` clears them between profiler sessions.

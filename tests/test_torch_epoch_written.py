@@ -143,6 +143,7 @@ def test_one_epoch_scatter_a_phase_equals_one_a_sub_group():
     states = []
     for _ in range(2):
         batch = {k: v[0] for k, v in next(chunks).items()}
+        batch["step"] = torch.tensor(state.step, dtype=torch.int32)
         new, _ = teng.micro_step(state, batch, cfg)
         x, y, _, win = teng._decode_batch(batch, cfg)
         W, H = cfg.array_width, cfg.array_height

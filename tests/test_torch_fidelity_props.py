@@ -218,7 +218,8 @@ def test_port_coarse_pooling_matches_one_pass():
     cfg_c = dataclasses.replace(cfg_u, aperture_sub_phases=1)
     packed, _ = teng.FlowEngine(cfg_u, device="cpu").pack(
         _bar()[:m], steps_per_call=1, compact=True)
-    batch = {"ev": torch.from_numpy(packed[0, 0])}
+    batch = {"ev": torch.from_numpy(packed[0, 0]),
+             "step": torch.zeros((), dtype=torch.int32)}
     st_u, (main_u, aux_u) = teng.micro_step(init_state(cfg_u, "cpu"), batch,
                                             cfg_u)
     st_c, (main_c, aux_c) = teng.micro_step(init_state(cfg_c, "cpu"), batch,

@@ -14,13 +14,15 @@ phases as the kernel uses them (a wait on parity p passes once the phase
 of parity p has completed; full and empty take both producers' or both
 storers' arrivals). A column block's storers add one to the stream
 slot's strips-done counter after their last stores; a row block's
-producers start once the counter reaches the call's target, the count of
-every earlier call's strips plus this call's.
+producers start once the counter reaches the call's strip count. Each
+row block counts itself finished as it ends, and the last row block of
+a call sets the slot's three counters back to 0.
 
 Asserted: no half slot is refilled before its fold has read it and its
 storer has taken it; no row block copies a column sum its strip has not
 stored and counted in this call (two calls run in turn on one stream
-slot, so the first call's count is there to mislead the second); the
+slot, then the second again with the same arguments, as a CUDA graph
+replays a captured launch); every call leaves the counters at 0; the
 grid finishes on 4, 132 and 1000 SMs; and the values folded in the
 kernel's order equal `build_integral` bit for bit on fields whose
 float64 sums round.
@@ -81,7 +83,8 @@ def parity(k):
 
 
 class Call:
-    """One farms_integral call on a stream slot: its grid and buffers."""
+    """One farms_integral call on a stream slot: its grid and buffers
+    (`launch` clears them for a launch with the same arguments)."""
 
     def __init__(self, fields, stream):
         self.rows, self.cols = fields[0].shape
@@ -90,12 +93,27 @@ class Call:
         self.n_strips = (self.cols + STRIP) // STRIP
         self.n_bands = -(-self.rows // BAND)
         self.n_blocks = self.n_strips + self.n_bands
-        self.target = stream["strips"] + self.n_strips   # the host's total
-        stream["strips"] = self.target
+        self.launch()
+
+    def launch(self):
         L = self.cols + 1
         self.integ = np.full((FIELDS, self.rows + 1, L), np.nan)
         self.stored = np.zeros((self.rows + 1, L), bool)   # column sums
-        self.tickets = 0
+
+
+def _slot():
+    """A stream slot's counters: tickets, strips done, row blocks done."""
+    return {"tickets": 0, "done": 0, "exits": 0}
+
+
+def _finished(call, ticket):
+    """A block's end: a row block counts itself, and the last row block
+    of the call resets the slot's counters."""
+    if ticket < call.n_strips:
+        return
+    call.stream["exits"] += 1
+    if call.stream["exits"] == call.n_bands:
+        call.stream.update(_slot())
 
 
 def _shared():
@@ -191,7 +209,7 @@ def _row_block(call, band, sh):
     row_ok = q <= rows
 
     def producer(w):
-        yield lambda: call.stream["done"] >= call.target
+        yield lambda: call.stream["done"] >= call.n_strips
         lanes = np.arange(w * HALF, (w + 1) * HALF)
         for t in range(n_tiles):
             s = t % SLOTS
@@ -202,7 +220,7 @@ def _row_block(call, band, sh):
             ok = row_ok[lanes][:, None] & jv[None, :]    # [lane, step]
             jj, qq = np.clip(j, 0, cols), np.clip(q[lanes], 0, rows)
             # every column sum copied is stored, and counted this call
-            assert call.stream["done"] >= call.target
+            assert call.stream["done"] >= call.n_strips
             assert call.stored[np.ix_(qq[row_ok[lanes]], jj[jv])].all()
             vals = call.integ[f_of[lanes][:, None], qq[:, None], jj[None, :]]
             sh["ring"][s][lanes] = np.where(ok, vals, 0.0)
@@ -239,8 +257,9 @@ def play(call, n_sm, rng):
     started = 0
     while started < call.n_blocks or live:
         while started < call.n_blocks and len(running) < capacity:
-            ticket = call.tickets
-            call.tickets += 1
+            ticket = call.stream["tickets"]
+            call.stream["tickets"] += 1
+            assert ticket < call.n_blocks          # the kernel's trap
             started += 1
             sh = _shared()
             if ticket < call.n_strips:
@@ -264,6 +283,7 @@ def play(call, n_sm, rng):
                         running[entry[3]] -= 1
                         if not running[entry[3]]:
                             del running[entry[3]]
+                            _finished(call, entry[3])
                         moved = True
                         break
                 if not entry[1]():
@@ -303,23 +323,26 @@ SHAPES = ((320, 320), (260, 346), (1, 17), (33, 1), (80, 320), (1280, 720))
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
 def test_integral_schedule_folds_build_integral_bitwise(shape, n_sm):
     rng = np.random.default_rng(shape[0] * 7919 + shape[1] * 31 + n_sm)
-    stream = {"strips": 0, "done": 0}     # the host's and the card's counts
+    stream = _slot()
     first_fields = _wide(40, 37, 1)
     first = Call(first_fields, stream)    # an earlier call on the stream
     play(first, n_sm, rng)
+    assert stream == _slot()
+    assert np.array_equal(first.integ.view(np.uint64), _bits(first_fields))
     fields = _wide(*shape, 2)
     call = Call(fields, stream)
-    play(call, n_sm, rng)
-    assert stream["done"] == stream["strips"]
-    assert np.array_equal(call.integ.view(np.uint64), _bits(fields))
-    assert np.array_equal(first.integ.view(np.uint64), _bits(first_fields))
+    for _ in range(2):                    # the launch, then its replay
+        play(call, n_sm, rng)
+        assert stream == _slot()
+        assert np.array_equal(call.integ.view(np.uint64), _bits(fields))
+        call.launch()
 
 
 def test_integral_roles_and_slots_match_the_source():
     """The model's lanes and warps are the kernel's: one fold warp of 4
     fields x STRIP columns or x BAND rows; two producers and two storers,
     a half slot each, a row block's half whole fields; the grid of column
-    then row blocks; the slot's pitch."""
+    then row blocks; the slot's pitch; the counters' reset."""
     assert FIELDS * STRIP == LANES == FIELDS * BAND == 32
     assert PRODUCERS == STORERS == 2 and HALF % BAND == 0
     assert PRODUCERS + 1 + STORERS <= ROLE_WARPS
@@ -330,3 +353,8 @@ def test_integral_roles_and_slots_match_the_source():
     for bar, count in (("full", "2 \\* 32"), ("done", "32"),
                        ("empty", "2 \\* 32")):
         assert re.search(rf"mbar_init\(&sh\.{bar}\[s\], {count}\)", _SRC)
+    # the last row block to finish resets the slot's counters (_finished)
+    assert ("atomicAdd(&g_exits[slot], 1ULL) == gridDim.x - n_strips - 1"
+            in _SRC)
+    for name in ("g_tickets", "g_strips_done", "g_exits"):
+        assert f"{name}[slot] = 0;" in _SRC

@@ -78,8 +78,9 @@ def test_one_micro_step_dispatches_no_more_ops(monkeypatch, preset):
                      **_PRESETS[preset])
     ev = synthetic_random_events(2 * cfg.chunk_size, 96, 64, seed=3)
     eng = teng.FlowEngine(cfg, device="cpu")
-    first, second = ({k: v[0] for k, v in chunk.items()}
-                     for chunk in eng.device_calls(ev, 1))
+    first, second = ({**{k: v[0] for k, v in chunk.items()},
+                      "step": torch.tensor(i, dtype=torch.int32)}
+                     for i, chunk in enumerate(eng.device_calls(ev, 1)))
     state, _ = teng.micro_step(eng.state, first, cfg)
     mode = _StepOps()
     for name in _KERNELS:
