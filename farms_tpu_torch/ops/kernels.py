@@ -15,10 +15,13 @@ path went through the kernels; a kernel's halo-mode launches (the row
 shards of parallel/halo.py) and tile-mode launches (the 2-D tiles of
 parallel/tiling.py) count under the same name. While a torch profiler
 records, local_flow's card path is also the span kernels.local_flow
-(utils/tracing.py), and its general launches the counter
-kernels.local_flow_general_launches. A call captured into a CUDA graph
-(pipeline/engine.py's resident call) launches nothing at capture: its
-engine takes the capture's counts back and adds them at every replay.
+(utils/tracing.py), its general launches the counter
+kernels.local_flow_general_launches and its correction-mode launches
+(fold_center=False) the counter kernels.local_flow_correction_launches;
+`COUNTERS` keeps both counts without a profiler too. A call captured into
+a CUDA graph (pipeline/engine.py's resident call) launches nothing at
+capture: its engine takes the capture's counts back and adds them at
+every replay.
 `device_launches` counts the same names among the kernels a profiler saw
 run on the card, a graph replay's included.
 """
@@ -48,11 +51,17 @@ DEVICE_KERNELS = {"local_flow": "local_flow_streamed",
                   "local_flow_general": "local_flow_general",
                   "aperture": "aperture_kernel", "integral": "integral_kernel",
                   "decode_wire": "decode_wire_"}
+# the tracing counters of local_flow's card path, counted here whether or
+# not a profiler records, so that a CUDA graph's capture can take back
+# what it counted
+COUNTERS = {"kernels.local_flow_general_launches": 0,
+            "kernels.local_flow_correction_launches": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, COUNTERS):
+        for k in counts:
+            counts[k] = 0
 
 
 def device_launches(events) -> dict:
@@ -180,7 +189,9 @@ def _launch_local_flow(chain, center, cfg, fold_center, halo, row_offset,
     """local_flow's card path (the checks, the outputs' allocations and
     the launch): the span kernels.local_flow; counted under "local_flow"
     (k = 3, 5) or "local_flow_general", a general launch also under the
-    counter kernels.local_flow_general_launches."""
+    counter kernels.local_flow_general_launches and a correction-mode
+    launch (fold_center False) under kernels.local_flow_correction_launches
+    (in COUNTERS, and in utils/tracing while a profiler records)."""
     with tracing.span("kernels.local_flow"):
         R = cfg.support_radius
         for h in (halo, col_halo):
@@ -212,8 +223,13 @@ def _launch_local_flow(chain, center, cfg, fold_center, halo, row_offset,
         name = "local_flow" if k in (3, 5) else "local_flow_general"
         _raise_on(rc, name)
         LAUNCHES[name] += 1
-        if name == "local_flow_general":
-            tracing.count("kernels.local_flow_general_launches")
+        for counter, launched in (
+                ("kernels.local_flow_general_launches",
+                 name == "local_flow_general"),
+                ("kernels.local_flow_correction_launches", not fold_center)):
+            if launched:
+                COUNTERS[counter] += 1
+                tracing.count(counter)
     return accept, a, b, dtdp, cand
 
 

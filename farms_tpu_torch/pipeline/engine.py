@@ -1097,9 +1097,10 @@ class _ResidentGraph:
     maps in, launches the graph on the current stream and clones the
     outputs, so a state or wire block one replay returned is never
     changed by a later one. The capture launches nothing: the kernel
-    wrappers' counts of it are taken back, and each replay adds them to
-    kernels.LAUNCHES (and the general plane fits to the counter
-    kernels.local_flow_general_launches).
+    wrappers' counts of it (kernels.LAUNCHES, and kernels.COUNTERS: the
+    counters kernels.local_flow_general_launches and
+    kernels.local_flow_correction_launches) are taken back, and each
+    replay adds them again, so that a replay counts as an eager call.
     """
 
     def __init__(self, engine: FlowEngine, chunk: dict):
@@ -1110,7 +1111,7 @@ class _ResidentGraph:
         self.step = torch.full((), st.step, dtype=torch.int32, device=dev)
         self.maps = [m.clone() for m in _maps(st)]
         engine.state = SurfaceState(*self.maps, st.step)
-        before = dict(kernels.LAUNCHES)
+        before = [dict(c) for c in (kernels.LAUNCHES, kernels.COUNTERS)]
         self.graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(self.graph):
@@ -1120,12 +1121,9 @@ class _ResidentGraph:
             self.out = _maps(engine.state)
         finally:
             engine.state = st
-        self.launches = {k: n - before[k] for k, n in kernels.LAUNCHES.items()}
-        kernels.LAUNCHES.update(before)
-        self.general = self.launches["local_flow_general"]
-        if self.general:
-            tracing.count("kernels.local_flow_general_launches",
-                          -self.general)
+        self.counts = [{k: n - b[k] for k, n in c.items()} for c, b in
+                       zip((kernels.LAUNCHES, kernels.COUNTERS), before)]
+        self._count(-1)
 
     def replay(self):
         """One fn(): the engine's state in, the graph, the outputs out (the
@@ -1140,12 +1138,21 @@ class _ResidentGraph:
             eng.state = SurfaceState(*(m.clone() for m in self.out),
                                      st.step + self.n_steps)
             wire = tuple(w.clone() for w in self.wire)
-        for k, n in self.launches.items():
-            kernels.LAUNCHES[k] += n
-        if self.general:
-            tracing.count("kernels.local_flow_general_launches", self.general)
+        self._count(1)
         tracing.count("engine.graph_replays")
         return wire
+
+    def _count(self, sign: int) -> None:
+        """Add `sign` times the capture's counts to kernels.LAUNCHES,
+        kernels.COUNTERS and the counters of utils/tracing (these only
+        while a profiler records)."""
+        launches, counters = self.counts
+        for k, n in launches.items():
+            kernels.LAUNCHES[k] += sign * n
+        for k, n in counters.items():
+            kernels.COUNTERS[k] += sign * n
+            if n:
+                tracing.count(k, sign * n)
 
 
 def _empty_output() -> FlowOutput:

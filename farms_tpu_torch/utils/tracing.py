@@ -28,9 +28,11 @@ decoded into output columns, on the host or on the card),
 `engine.device_decoded_lanes` (the lanes the decode_wire kernel decoded),
 `engine.resident_calls` and `engine.graph_replays` (every fn() of
 FlowEngine.process_resident, and those that replayed a captured CUDA
-graph) and `kernels.local_flow_general_launches` (ops/kernels.local_flow:
-the launches of the general plane-fit kernel, k >= 7; a graph replay adds
-the launches it holds). Besides the engines' stage spans,
+graph), `kernels.local_flow_general_launches` (ops/kernels.local_flow:
+the launches of the general plane-fit kernel, k >= 7) and
+`kernels.local_flow_correction_launches` (its launches of either kernel
+in correction mode: the rank-2 center correction's pass); a graph replay
+adds the launches it holds. Besides the engines' stage spans,
 ops/kernels.local_flow opens `kernels.local_flow` around its card path's
 host work (checks, allocations, the launch), which a graph replay does
 not repeat.
